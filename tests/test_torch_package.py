@@ -1,0 +1,119 @@
+"""The port's package boundary and device rules: it imports no jax and
+nothing of ``vaeunet_tpu``; its entry points never fall back to the CPU
+unasked; its kernel wrappers take a CUDA tensor to the kernel or raise."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import vaeunet_tpu_torch
+from vaeunet_tpu_torch import (
+    build_model,
+    predict_image,
+    predict_tiled_ensemble,
+    resolve_device,
+    segmentation_distribution,
+)
+from vaeunet_tpu_torch.ops import _ext
+from vaeunet_tpu_torch.ops.pallas import bn_relu, reparam, resize_mm
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = ("import sys, vaeunet_tpu_torch, vaeunet_tpu_torch.inference, "
+            "vaeunet_tpu_torch.compat, vaeunet_tpu_torch.vae_utils; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
+            "print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_sources_name_no_jax_import():
+    pkg = Path(vaeunet_tpu_torch.__file__).parent
+    for path in [*pkg.rglob("*.py"), REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")):
+                assert not stripped.split()[1].startswith(("jax", "flax", "vaeunet_tpu.")), \
+                    f"{path}: {stripped}"
+                assert stripped.split()[1] != "vaeunet_tpu", f"{path}: {stripped}"
+
+
+def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(backbone="resnet18")
+    model = build_model(backbone="resnet18", device="cpu")
+    img = np.zeros((64, 64, 3), np.float32)
+    with pytest.raises(RuntimeError):
+        segmentation_distribution(model, img, torch.Generator(), num_samples=1)
+    with pytest.raises(RuntimeError):
+        predict_image(model, img)
+    with pytest.raises(RuntimeError):
+        predict_tiled_ensemble(model, img, torch.zeros(1, 32), patch_size=64)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_cuda_call_with_a_cpu_model_raises(monkeypatch):
+    """Asked for the card, a model left on the CPU is an error, not a quiet
+    CPU run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    model = build_model(backbone="resnet18", device="cpu")
+    with pytest.raises(ValueError, match="model is on cpu"):
+        predict_image(model, np.zeros((64, 64, 3), np.float32), device="cuda")
+
+
+def test_wrappers_raise_on_devices_they_do_not_take():
+    x = torch.empty((1, 4, 8, 8), device="meta").contiguous(memory_format=torch.channels_last)
+    a = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bn_relu.fused_bn_relu(x, a, a, a, a)
+    with pytest.raises(ValueError, match="unsupported device"):
+        resize_mm.resize(x, (16, 16), True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        reparam.normal((2, 3), 0, "meta")
+    with pytest.raises(ValueError, match="64-bit"):
+        reparam.normal((2, 3), -1, "cpu")
+
+
+def test_cpu_path_counts_no_launches():
+    _ext.reset_launch_counts()
+    x = torch.randn(1, 4, 8, 8).contiguous(memory_format=torch.channels_last)
+    resize_mm.resize(x, (16, 16), True)
+    bn_relu.fused_bn_relu(x, *(torch.ones(4),) * 4)
+    reparam.normal((2, 3), 0, "cpu")
+    assert _ext.launch_counts() == {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0}
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _ext.nvcc_path()
+
+
+def test_library_names_follow_sources_and_flags():
+    paths = {name: _ext.library_path(name) for name in _ext.SIGNATURES}
+    assert {p.parent for p in paths.values()} == {_ext.BUILD_DIR}
+    assert all(p.name.startswith(f"{n}-") and p.suffix == ".so" for n, p in paths.items())
+    assert sorted(p.stem.split("-")[0] for p in _ext.CSRC.glob("*.cu")) == sorted(paths)
+    assert "arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

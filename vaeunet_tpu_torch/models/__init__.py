@@ -1,0 +1,9 @@
+from vaeunet_tpu_torch.models.resnet import ResNetEncoder
+from vaeunet_tpu_torch.models.vae_unet import (
+    DecoderBlock,
+    UNetResNet,
+    build_model,
+    capture_attention,
+)
+
+__all__ = ["ResNetEncoder", "DecoderBlock", "UNetResNet", "build_model", "capture_attention"]

@@ -1,0 +1,155 @@
+"""Build, load and bind the hand-written CUDA kernels in ``csrc/``.
+
+New in the port (the JAX package compiled its Pallas kernels through
+``pallas_call``).  Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+``ctypes``.  The build runs at first use, all sources at once in parallel,
+into ``build/kernels/`` at the root of the checkout, keyed by a hash of the
+source and the flags, so a fresh checkout builds everything on its first
+kernel call and later processes reuse the libraries.
+
+Every C entry returns ``cudaGetLastError()``; :func:`call` raises when it is
+not 0.  The launch counters are plain integers, one per kernel: a wrapper
+adds one where it launches its kernel and nowhere else, so a run can show
+which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
+_F = ctypes.c_float
+_RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+
+# library -> {C function: argtypes}; every function returns int (cudaError_t)
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "reparam": {
+        "vaeunet_normal": [_P, _I64, _U64, _P],
+        "vaeunet_reparam": [_P, _P, _F, _P, _I64, _U64, _P],
+    },
+    "bn_relu": {
+        "vaeunet_bn_relu_f32": [_P, _P, _P, _P, _I64, _I, _P],
+        "vaeunet_bn_relu_bf16": [_P, _P, _P, _P, _I64, _I, _P],
+    },
+    "resize": {
+        "vaeunet_resize_f32": _RESIZE_ARGS,
+        "vaeunet_resize_bf16": _RESIZE_ARGS,
+    },
+}
+
+# kernel -> launches since the last reset
+LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(kernel: str) -> None:
+    LAUNCHES[kernel] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the CUDA kernels")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
+    """Compile every library in `names` (default: all) that is not built
+    yet, one ``nvcc`` process per source, all started together.
+
+    -> {name: {"path", "seconds", "ptxas"}}; "seconds" is None and "ptxas"
+    empty for a library that was already built.  Raises if a build fails.
+    """
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    info: Dict[str, dict] = {}
+    procs = {}
+    start = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        info[name] = {"path": str(out), "seconds": None, "ptxas": []}
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        info[name]["seconds"] = time.perf_counter() - start
+        info[name]["ptxas"] = [ln for ln in log.splitlines() if "ptxas" in ln]
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return info
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``; the first use builds every
+    library not built yet (in parallel)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def call(name: str, fn: str, device: torch.device, *args) -> None:
+    """Launch C entry `fn` of library `name` on `device`'s current stream
+    (the stream is appended as the last argument); raise on a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(library(name), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed with CUDA error {rc}")

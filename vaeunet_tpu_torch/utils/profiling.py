@@ -1,0 +1,105 @@
+"""Where a serving request's device time goes.  Port of the tracing role of
+``vaeunet_tpu/utils/profiling.py`` (its ``trace`` context manager around
+``jax.profiler``), here over ``torch.profiler``.
+
+    python -m vaeunet_tpu_torch.utils.profiling
+
+runs one N-sample uncertainty request (the full-resolution tiled request of
+``chip_smoke.py``) under ``torch.profiler`` on the card and prints the
+device time by kernel family and the top kernels, the wall time, and the
+device's idle share (1 - summed kernel time / wall time; one stream, so
+kernels do not overlap).  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from collections import defaultdict
+from typing import Callable, Dict
+
+import torch
+
+from vaeunet_tpu_torch import build_model, segmentation_distribution, uncertainty_maps
+
+# kernel-name fragments -> family, first match wins
+FAMILIES = (
+    ("bn_relu", ("bn_relu_",)),
+    ("resize", ("resize_bilinear_kernel",)),
+    ("normal/reparam", ("normal_kernel", "reparam_kernel")),
+    ("batch_norm (gate, residual)", ("batch_norm", "bn_fw_inf")),
+    ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "implicit_gemm", "cutlass", "sm90_",
+                             "winograd", "fft", "DSE::", "pointwise_mult_and_sum_complex",
+                             "gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("copy / cat / fill", ("copy", "Cat", "cat_", "fill", "Memcpy", "Memset")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other elementwise / reduction"
+
+
+def device_breakdown(fn: Callable[[], None]) -> Dict:
+    """Run fn() once under torch.profiler; -> wall seconds, summed device
+    seconds, per-family and per-kernel device seconds and launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = per_kernel[e.name]
+            rec[0] += e.time_range.elapsed_us() * 1e-6
+            rec[1] += 1
+    per_family = defaultdict(lambda: [0.0, 0])
+    for name, (sec, n) in per_kernel.items():
+        rec = per_family[family(name)]
+        rec[0] += sec
+        rec[1] += n
+    busy = sum(sec for sec, _ in per_kernel.values())
+    return {"wall_s": wall, "device_s": busy,
+            "idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "families": dict(per_family), "kernels": dict(per_kernel)}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device is available")
+    model = build_model(seed=0, device="cuda")
+    # one IDRiD fundus at full resolution; 512 tiles, overlap 100, N=10
+    image = torch.rand((2848, 4288, 3), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(4))
+
+    def request():
+        samples, _, _ = segmentation_distribution(
+            model, image, torch.Generator().manual_seed(0), num_samples=10,
+            patch_size=512, overlap=100)
+        uncertainty_maps(samples)
+
+    request()                                      # warm-up: library load, cuDNN plans
+    out = device_breakdown(request)
+    print(f"device: {torch.cuda.get_device_name(0)}  (fp32, TF32 off)")
+    print(f"wall {out['wall_s']:.3f} s  device busy {out['device_s']:.3f} s  "
+          f"idle share {out['idle_share']:.3f}")
+    for fam, (sec, n) in sorted(out["families"].items(), key=lambda kv: -kv[1][0]):
+        print(f"  {fam:30s} {sec * 1e3:10.1f} ms  {100 * sec / out['device_s']:5.1f} %  "
+              f"{n} launches")
+    print("top kernels:")
+    top = sorted(out["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (sec, n) in top:
+        print(f"  {sec * 1e3:10.1f} ms  {n:6d}x  {name[:110]}")
+    print(json.dumps({"wall_s": out["wall_s"], "device_s": out["device_s"],
+                      "idle_share": out["idle_share"],
+                      "families_ms": {k: v[0] * 1e3 for k, v in out["families"].items()}}))
+
+
+if __name__ == "__main__":
+    main()
