@@ -3,26 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``vaeunet_tpu_torch``) on the card, in
-phases that each fail the run with a non-zero exit:
+Drives the port's serving and training paths (``vaeunet_tpu_torch``) on
+the card, in phases that each fail the run with a non-zero exit:
 
 1. device: name, count, versions, ``nvidia-smi`` name and power limit;
 2. build: every ``vaeunet_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with timings (CUDA events) beside the
-   bytes bound and a PyTorch yardstick;
+   at the shapes its path gives it, with timings (CUDA events) beside the
+   bound and a PyTorch yardstick;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
    ``predict_image`` at 512^2.  Kernel launch counts are read over exactly
    this phase and held against the counts the code implies;
 5. the card's slice against the CPU's on one 512^2 image, same weights and
-   noise, TF32 off: samples atol 2e-4, mu/logvar atol 1e-4.
+   noise, TF32 off: samples atol 2e-4, mu/logvar atol 1e-4;
+6. training: the flagship VAE-UNet (random weights from a seed) at 512^2,
+   batch 16, bf16, no accumulation: the first step must change every
+   parameter and leave it finite, then 3 warm-up and 10 timed steps, whose
+   kernel launch counts are held against the counts the code implies, and
+   one eval step on 16 images with a ``valid`` row mask;
+7. one fp32 train step (TF32 off) of the full-width resnet34 model at
+   128^2, batch 2, accumulation 2, on the card and on the CPU from the same
+   weights, batch and noise: loss atol 1e-5, running statistics atol 1e-4
+   + rtol 1e-3, parameters atol 2 lr (+ 1e-6 for the fp32 rounding of
+   p +- lr).
 
-The serving path and every comparison run in full fp32 (TF32 off for
-cuDNN convolutions and matmuls).  The last three lines are the kernels JSON,
-the ``nvidia-smi`` line and the result JSON.  Needs one CUDA card; exits
-non-zero without one.
+Serving and every comparison run in full fp32 (TF32 off for cuDNN
+convolutions and matmuls); the training step of phase 6 in bf16.  The last
+three lines are the kernels JSON, the ``nvidia-smi`` line and the result
+JSON.  Needs one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -42,11 +52,19 @@ from vaeunet_tpu_torch import uncertainty_maps, use_fp32_numerics
 from vaeunet_tpu_torch.inference.tiled import compute_tile_grid
 from vaeunet_tpu_torch.ops import _ext
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
+from vaeunet_tpu_torch.ops.pallas import conv_bn_stats as conv_mod
 from vaeunet_tpu_torch.ops.pallas import reparam as reparam_mod
 from vaeunet_tpu_torch.ops.pallas import resize_mm
+from vaeunet_tpu_torch.training import (
+    TrainConfig,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 IMAGE_HW = (2848, 4288)       # one IDRiD fundus at full resolution
 PATCH, OVERLAP, TILE_BATCH = 512, 100, 8
@@ -69,9 +87,9 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -92,6 +110,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def iters_for(nbytes: float) -> int:
     return int(min(200, max(20, 2e9 / max(nbytes, 1.0))))
+
+
+def time_auto(fn, budget_s: float = 0.25) -> float:
+    """time_ms with as many launches as fit in about `budget_s` (3 to 100),
+    for calls whose time spans milliseconds to tens of them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    return time_ms(fn, int(min(100, max(3, budget_s / max(once, 1e-6)))), warmup=1)
 
 
 def check(ok: bool, what: str) -> None:
@@ -285,12 +315,124 @@ def kernel_reparam(table: dict) -> None:
             bound_ms=bnd, bound_by=by, shape="[10, 32]")
 
 
+CONV_SHAPES = (((16, 64, 128, 128), 64),    # encoder stage 1 at 512^2
+               ((16, 224, 256, 256), 64),   # decoder_3 conv1: [x 128, skip 64, z 32]
+               ((16, 800, 32, 32), 512),    # decoder_0 conv1: [x 512, skip 256, z 32]
+               ((2, 5, 12, 13), 7))         # ragged: Ci, Co, H, W off every tile
+CONV_MAIN = ((16, 224, 256, 256), 64, torch.bfloat16)
+
+
+def kernel_conv_bn_stats(table: dict) -> None:
+    """y within 1e-5 of the summed magnitudes (conv of |x| with |w|) in
+    fp32, the room fp32 rounding in another order needs; in bf16 one bf16
+    ulp more, since the two fp32 values can round to neighbours.  s within
+    1e-5 (fp32) or 1e-4 (bf16) of sum |y|, q relative 1e-5 / 1e-4: both sides
+    sum the same fp32 values in another order."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for shape, co in CONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            w = (torch.randn((co, shape[1], 3, 3), device="cuda", generator=g)
+                 / (3.0 * shape[1] ** 0.5)).to(dtype)
+            y, s, q = conv_mod.conv3x3_bn_stats(x, w)
+            ry, rs, rq = conv_mod.conv3x3_bn_stats_plain(x, w)
+            mag = F.conv2d(x.float().abs(), w.float().abs(), padding=1)
+            torch.cuda.synchronize()
+            diff = (y.float() - ry.float()).abs()
+            err = diff.max().item()
+            rel = 1e-5 if dtype == torch.float32 else 1e-4
+            room = 1e-5 * mag
+            if dtype != torch.float32:
+                room = room + torch.maximum(y.float().abs(), ry.float().abs()) * 2.0 ** -7
+            check(bool((diff <= room).all()), f"conv_bn_stats {shape}->{co} {dtype}: y outside "
+                  f"tolerance (max err {err})")
+            s_room = rel * ry.float().abs().sum(dim=(0, 2, 3))
+            check(bool(((s - rs).abs() <= s_room).all()), f"conv_bn_stats {shape}: sums differ")
+            check(bool(((q - rq).abs() <= rel * rq).all()), f"conv_bn_stats {shape}: squares differ")
+            s_err = max((s - rs).abs().max().item(), (q - rq).abs().max().item())
+            del mag, diff, room, ry
+            b, ci, h, wd = shape
+            macs = b * h * wd * ci * co * 9
+            esize = x.element_size()
+            nbytes = (x.numel() + w.numel() + b * co * h * wd) * esize + 2 * co * 4
+            peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+            bnd, by = bound_ms(nbytes, 2.0 * macs, peak)
+            k_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats(x, w))
+            p_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats_plain(x, w))
+
+            def library():
+                yl = F.conv2d(x, w, padding=1)
+                return yl.sum(dim=(0, 2, 3), dtype=torch.float32), \
+                    yl.square().sum(dim=(0, 2, 3), dtype=torch.float32)
+            l_ms = time_auto(library)
+            log(f"conv_bn_stats {list(shape)}->{co} {str(dtype)[6:]}: y err {err:.3g} "
+                f"moments err {s_err:.3g}  kernel {k_ms:.4f} ms ({2 * macs / k_ms / 1e9:.1f} "
+                f"TFLOP/s)  plain {p_ms:.4f} ms  F.conv2d+sums {l_ms:.4f} ms  "
+                f"bound {bnd:.4f} ms ({by})")
+            main = (shape, co, dtype) == CONV_MAIN
+            _record(table, "conv_bn_stats", err=err, **(dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
+                shape=f"{list(shape)}->{co} bf16") if main else {}))
+            del x, w, y, s, q
+    torch.cuda.empty_cache()
+
+
+# (input NCHW, output H = W) of the 512^2 batch-16 step's five resizes
+RESIZE_BWD_SHAPES = (((16, 512, 16, 16), 32), ((16, 512, 32, 32), 64),
+                     ((16, 256, 64, 64), 128), ((16, 128, 128, 128), 256),
+                     ((16, 1, 256, 256), 512))
+
+
+def kernel_resize_bwd(table: dict) -> None:
+    """gx = M^T g against the plain version (index_add_ with atomics on the
+    card, so fp32 order differs: 1e-6 of the summed magnitudes M^T |g|; bf16
+    is summed in fp32 and rounded once, so one bf16 ulp more) and, in fp32,
+    against autograd's upsample_bilinear2d_backward (1e-5 of them; in bf16
+    that one accumulates in bf16 and is only timed)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for shape, out in RESIZE_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gy = torch.randn((shape[0], shape[1], out, out), device="cuda", generator=g).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            gx = resize_mm.resize_backward(gy, shape[2:], True)
+            ref = resize_mm.resize_backward_plain(gy, shape[2:], True)
+            lib = torch.ops.aten.upsample_bilinear2d_backward(gy, [out, out], list(shape),
+                                                               True, None, None)
+            mag = resize_mm.resize_backward_plain(gy.float().abs(), shape[2:], True)
+            torch.cuda.synchronize()
+            ulp = 0.0 if dtype == torch.float32 else gx.float().abs() * 2.0 ** -7
+            err = (gx.float() - ref.float()).abs()
+            check(bool((err <= 1e-6 * mag + ulp).all()),
+                  f"resize_bwd {shape}->{out} {dtype}: differs from the plain version")
+            if dtype == torch.float32:
+                check(bool(((gx - lib).abs() <= 1e-5 * mag).all()),
+                      f"resize_bwd {shape}->{out}: differs from upsample_bilinear2d_backward")
+            err = err.max().item()
+            nbytes = (gy.numel() + gx.numel()) * gy.element_size()
+            bnd, by = bound_ms(nbytes, RESIZE_OPS * gy.numel())
+            it = iters_for(nbytes)
+            k_ms = time_ms(lambda: resize_mm.resize_backward(gy, shape[2:], True), it)
+            p_ms = time_ms(lambda: resize_mm.resize_backward_plain(gy, shape[2:], True), it)
+            l_ms = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                gy, [out, out], list(shape), True, None, None), it)
+            log(f"resize_bwd {list(shape)}<-{out}^2 {str(dtype)[6:]}: err {err:.3g}  "
+                f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  upsample_bilinear2d_backward "
+                f"{l_ms:.4f} ms  bound {bnd:.4f} ms")
+            main = shape == (16, 128, 128, 128) and dtype == torch.bfloat16
+            _record(table, "resize_bwd", err=err, **(dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
+                shape=f"{list(shape)}<-{out}^2 bf16") if main else {}))
+
+
 def phase_kernels() -> dict:
     table: dict = {}
     kernel_bn_relu(table)
     kernel_resize(table)
     kernel_noise(table)
     kernel_reparam(table)
+    kernel_conv_bn_stats(table)
+    kernel_resize_bwd(table)
     return table
 
 
@@ -312,7 +454,8 @@ def expected_launches() -> dict:
     batches = -(-n_tiles // TILE_BATCH)
     enc, dec = 17, 13          # resnet34 BN->ReLU pairs; z_initial + 4 x (z_proj, bn1, bn2)
     per_request = {"bn_relu": enc * (1 + batches) + dec * batches * N_SAMPLES,
-                   "resize": 5 * batches * N_SAMPLES, "reparam": 1, "normal": 0}
+                   "resize": 5 * batches * N_SAMPLES, "reparam": 1, "normal": 0,
+                   "resize_bwd": 0, "conv_bn_stats": 0}
     expected = {k: v * N_REQUESTS for k, v in per_request.items()}
     expected["bn_relu"] += enc + dec        # one predict_image at 512^2
     expected["resize"] += 5
@@ -360,8 +503,8 @@ def phase_slice(model) -> dict:
         f"all {[round(t, 3) for t in times]}  (fp32, TF32 off)")
     log(f"peak memory: {peak:.2f} GiB")
     log(f"launches: {counts}  expected {expected}")
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} was not launched on the serving path")
+    for k in ("bn_relu", "resize", "reparam", "normal"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the serving path")
     check(counts == expected, f"launch counts {counts} differ from the code's {expected}")
     return counts
 
@@ -383,11 +526,161 @@ def phase_parity(model) -> None:
     check(errs[1] <= 1e-4 and errs[2] <= 1e-4, f"mu/logvar differ from the CPU: {errs[1:]}")
 
 
+# ----- phase 6 -------------------------------------------------------------
+
+TRAIN_HW, TRAIN_BATCH = 512, 16
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+
+
+def train_config(**kw) -> TrainConfig:
+    """The step bench.py:42-51 times: resnet34, latent 32, 'all', attention
+    skips, one class, 512^2, batch 16, bf16, no accumulation, lr 1e-4."""
+    base = dict(model_type="resnet", batch_size=TRAIN_BATCH, gradient_accumulation_steps=1,
+                amp=True, patch_size=TRAIN_HW, learning_rate=1e-4)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def expected_train_launches(steps: int) -> dict:
+    """Launches the training path's code implies: per forward, 29 encoder
+    (stage sizes 3, 4, 6, 3: every block's conv2 and its stride-1 conv1) and
+    8 decoder conv + BN pairs take the conv kernel, 4 decoder upsamples and
+    the final one to 512^2 the resize kernel, whose backward runs as often,
+    and the latent draw one noise kernel; eval BN+ReLU and the fused draw
+    are not on this path."""
+    per_step = {"conv_bn_stats": 29 + 8, "resize": 5, "resize_bwd": 5, "normal": 1,
+                "bn_relu": 0, "reparam": 0}
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def first_step_moved_everything(model, before: dict) -> None:
+    """Every parameter changed and is finite after one step.  The one
+    allowed exception: a parameter whose gradient is exactly 0, which can
+    only be a conv bias in front of a training BN (the BN subtracts the
+    batch mean, so its gradient is 0 in exact arithmetic); a cut graph
+    leaves .grad None and fails here."""
+    still = []
+    for name, p in model.named_parameters():
+        check(p.grad is not None, f"{name}: no gradient (the graph was cut)")
+        check(bool(torch.isfinite(p).all()), f"{name}: not finite after the step")
+        if torch.equal(p.detach(), before[name]):
+            still.append(name)
+    for name in still:
+        grad_zero = not bool(model.get_parameter(name).grad.any())
+        check(grad_zero and name.endswith(".0.bias"),
+              f"{name}: unchanged by the first step")
+    log(f"first step: {sum(1 for _ in model.parameters())} parameter tensors, all finite; "
+        f"unchanged: {still or 'none'}")
+
+
+def phase_train() -> dict:
+    config = train_config()
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3), device="cuda", generator=g)
+    masks = (torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 1), device="cuda", generator=g)
+             > 0.9).float()
+    beta = 0.001
+    before = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    t0 = time.perf_counter()
+    state, aux = step(state, images, masks, beta)
+    torch.cuda.synchronize()
+    log(f"train step 1 (cold): {time.perf_counter() - t0:.3f} s  loss {aux['loss'].item():.5f}")
+    first_step_moved_everything(state.model, before)
+    del before
+    for _ in range(WARMUP_STEPS - 1):
+        state, aux = step(state, images, masks, beta)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, images, masks, beta)
+        losses.append(aux["loss"].item())          # a host fetch, as bench.py ends a step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _ext.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"losses {losses}")
+    p50 = statistics.median(times)
+    img_s = TRAIN_BATCH * TIMED_STEPS / sum(times)
+    log(f"train steps: p50 {p50:.4f} s  max {max(times):.4f} s  all "
+        f"{[round(t, 4) for t in times]}  loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    log(f"train peak memory: {peak:.2f} GiB")
+    log(json.dumps({"metric": "images_per_sec_per_chip_512sq_vaeunet_train_torch",
+                    "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
+    expected = expected_train_launches(TIMED_STEPS)
+    log(f"train launches over {TIMED_STEPS} steps: {counts}  expected {expected}")
+    for k in ("conv_bn_stats", "resize", "resize_bwd", "normal"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the training path")
+    check(counts == expected, f"training launch counts {counts} differ from the code's {expected}")
+
+    # one eval step: eval-mode BN through bn_relu, a sampled z, 12 valid rows
+    eval_step = make_eval_step(config, state.model)
+    valid = torch.tensor([1.0] * 12 + [0.0] * 4, device="cuda")
+    _ext.reset_launch_counts()
+    metrics, logits = eval_step(images, masks, torch.Generator().manual_seed(10), valid=valid)
+    torch.cuda.synchronize()
+    ecounts = _ext.launch_counts()
+    check(tuple(logits.shape) == (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 1)
+          and bool(torch.isfinite(logits).all()), "eval logits")
+    for k, v in metrics.items():
+        check(0.0 <= v.item() <= 1.0, f"eval metric {k} = {v.item()}")
+    expected_eval = {"bn_relu": 17 + 13, "resize": 5, "normal": 1, "reparam": 0,
+                     "resize_bwd": 0, "conv_bn_stats": 0}
+    log(f"eval step: {({k: round(v.item(), 5) for k, v in metrics.items()})}  launches {ecounts}")
+    check(ecounts == expected_eval, f"eval launch counts {ecounts} differ from {expected_eval}")
+    del state, step, eval_step, images, masks, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----- phase 7 -------------------------------------------------------------
+
+def phase_train_parity() -> None:
+    """One fp32 step on the card and on the CPU from the same weights,
+    batch and noise.  Tolerances as in tests/torch_train_parity.py; the
+    first Adam step is lr g / (|g| + eps), whose sign can flip where |g| is
+    near 0, hence 2 lr on the parameters, plus 1e-6 for the fp32 rounding
+    of p +- lr."""
+    use_fp32_numerics()
+    lr = 1e-4
+    config = train_config(batch_size=2, gradient_accumulation_steps=2, amp=False,
+                          patch_size=128, learning_rate=lr)
+    g = torch.Generator().manual_seed(11)
+    images = torch.rand((2, 128, 128, 3), generator=g)
+    masks = (torch.rand((2, 128, 128, 1), generator=g) > 0.9).float()
+    eps = torch.randn((2, 1, 32), generator=g)
+    results = []
+    for device in ("cuda", "cpu"):
+        state = create_train_state(config, seed=3, device=device)
+        state, aux = make_train_step(config, state.model)(state, images, masks, 0.001, eps=eps)
+        results.append((aux["loss"].item(),
+                        {k: v.detach().cpu() for k, v in state.model.state_dict().items()}))
+    (loss_gpu, sd_gpu), (loss_cpu, sd_cpu) = results
+    err_p = max((sd_gpu[k] - v).abs().max().item() for k, v in sd_cpu.items()
+                if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    err_s = max(((sd_gpu[k] - v).abs() - 1e-3 * v.abs()).max().item()
+                for k, v in sd_cpu.items() if k.endswith(("running_mean", "running_var")))
+    log(f"train parity, card vs CPU, fp32 128^2 b2 accum 2: loss {loss_gpu:.7f} vs "
+        f"{loss_cpu:.7f}  params max err {err_p:.3g} (2 lr = {2 * lr:g})  running stats "
+        f"max err beyond 1e-3 |ref| {err_s:.3g}")
+    check(abs(loss_gpu - loss_cpu) <= 1e-5, f"loss differs from the CPU by {loss_gpu - loss_cpu}")
+    check(err_p <= 2 * lr + 1e-6, f"parameters differ from the CPU by {err_p} > 2 lr")
+    check(err_s <= 1e-4, f"running statistics differ from the CPU beyond 1e-4 + 1e-3 |ref|")
+
+
 KERNELS = (
     ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:53"),
     ("reparam", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:87"),
     ("bn_relu", "vaeunet_tpu_torch/csrc/bn_relu.cu", "vaeunet_tpu/ops/pallas/bn_relu.py:30"),
     ("resize", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),
+    ("resize_bwd", "vaeunet_tpu_torch/csrc/resize.cu",
+     "vaeunet_tpu/ops/pallas/resize_mm.py:125-151"),
+    ("conv_bn_stats", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
+     "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
 )
 
 
@@ -402,11 +695,16 @@ def main() -> None:
     randomize_bn_stats(model, seed=1)
     counts = phase_slice(model)
     phase_parity(model)
+    del model
+    torch.cuda.empty_cache()
+    train_counts = phase_train()
+    phase_train_parity()
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": rec["max_abs_err"],
+                        "launches": counts[name] + train_counts[name],
+                        "max_abs_err": rec["max_abs_err"],
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"], "shape": rec["shape"]})

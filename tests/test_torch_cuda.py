@@ -13,7 +13,9 @@ import torch.nn.functional as F
 
 from vaeunet_tpu_torch import build_model, segmentation_distribution, use_fp32_numerics
 from vaeunet_tpu_torch.ops import _ext
-from vaeunet_tpu_torch.ops.pallas import bn_relu, reparam, resize_mm
+from vaeunet_tpu_torch.ops.pallas import bn_relu, conv_bn_stats, reparam, resize_mm
+from vaeunet_tpu_torch.ops.resize import resize_bilinear
+from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +82,140 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
                                     eps=eps, device="cpu")
     torch.testing.assert_close(gpu[0].cpu(), cpu[0], atol=2e-4, rtol=0)
     torch.testing.assert_close(gpu[1].cpu(), cpu[1], atol=1e-4, rtol=0)
+
+
+def _conv_case(cuda, shape, co, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = cl(torch.randn(shape, device=cuda, generator=g).to(dtype))
+    w = (torch.randn((co, shape[1], 3, 3), device=cuda, generator=g) * 0.2).to(dtype)
+    return x, w
+
+
+def _moment_loss(y, s, q):
+    return torch.tanh(y.float()).sum() + 0.3 * s.sum() + 0.1 * q.sum()
+
+
+@pytest.mark.parametrize("shape,co", [((2, 5, 12, 13), 7), ((2, 20, 17, 35), 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
+    """y and the moments against the fp32 plain version; the Function's
+    backward against the plain version's autograd.  fp32: errors within
+    1e-5 of the magnitudes summed (conv of |x| with |w|, sum of |y|), the
+    room fp32 rounding in another order needs; bf16: y within one bf16 ulp
+    on top of that, since the two fp32 values can round to neighbours."""
+    x, w = _conv_case(cuda, shape, co, dtype)
+    before = _ext.launch_counts()["conv_bn_stats"]
+    y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w)
+    assert _ext.launch_counts()["conv_bn_stats"] == before + 1
+    ry, rs, rq = conv_bn_stats.conv3x3_bn_stats_plain(x, w)
+    mag = F.conv2d(x.float().abs(), w.float().abs(), padding=1)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    ulp = torch.maximum(y.float().abs(), ry.float().abs()) * 2.0 ** -7 if dtype != torch.float32 \
+        else torch.zeros_like(mag)
+    assert ((y.float() - ry.float()).abs() <= 1e-5 * mag + ulp + 1e-30).all()
+    rel = 1e-5 if dtype == torch.float32 else 1e-4
+    assert ((s - rs).abs() <= rel * ry.float().abs().sum(dim=(0, 2, 3)) + 1e-30).all()
+    assert ((q - rq).abs() <= rel * rq).all()
+    xk, wk = x.detach().requires_grad_(), w.detach().requires_grad_()
+    _moment_loss(*conv_bn_stats.conv3x3_bn_stats(xk, wk)).backward()
+    xp, wp = x.detach().requires_grad_(), w.detach().requires_grad_()
+    _moment_loss(*conv_bn_stats.conv3x3_bn_stats_plain(xp, wp)).backward()
+    for a, b in ((xk.grad, xp.grad), (wk.grad, wp.grad)):
+        scale = b.float().abs().max()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(a.float(), b.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 8, 16, 16), (32, 32)), ((1, 5, 7, 9), (19, 4)),
+                                          ((2, 3, 20, 30), (9, 13)), ((2, 1, 32, 32), (64, 64))])
+@pytest.mark.parametrize("ac", [True, False])
+def test_resize_bwd_kernel_matches_plain_and_interpolate(cuda, shape, out_hw, ac):
+    """gx = M^T g against the plain index_add_ version (atomics on the
+    card, so fp32 order differs: 1e-6 of the magnitudes summed) and against
+    the gradient of F.interpolate (1e-5 of them)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = cl(torch.randn((shape[0], shape[1], *out_hw), device=cuda, generator=gen))
+    before = _ext.launch_counts()["resize_bwd"]
+    gx = resize_mm.resize_backward(g, shape[2:], ac)
+    assert _ext.launch_counts()["resize_bwd"] == before + 1
+    ref = resize_mm.resize_backward_plain(g, shape[2:], ac)
+    mag = resize_mm.resize_backward_plain(g.abs(), shape[2:], ac)
+    x = torch.zeros(shape, device=cuda, requires_grad=True)
+    lib, = torch.autograd.grad(F.interpolate(x, size=out_hw, mode="bilinear",
+                                             align_corners=ac), x, g)
+    torch.cuda.synchronize()
+    assert gx.is_contiguous(memory_format=torch.channels_last)
+    assert ((gx - ref).abs() <= 1e-6 * mag + 1e-30).all()
+    assert ((gx - lib).abs() <= 1e-5 * mag + 1e-30).all()
+    # an NCHW-contiguous gradient is taken as it comes
+    torch.testing.assert_close(resize_mm.resize_backward(g.contiguous(), shape[2:], ac), gx,
+                               atol=0, rtol=0)
+
+
+def test_resize_gradient_reaches_the_input_on_cuda(cuda):
+    """The resize kernel's output carries a grad_fn: a training forward is
+    not cut at the decoder's resizes, and the gradient equals the CPU's."""
+    x_cpu = torch.randn((2, 6, 9, 11), generator=torch.Generator().manual_seed(4))
+    x_cpu = cl(x_cpu).requires_grad_()
+    x_gpu = x_cpu.detach().to(cuda).requires_grad_()
+    w = torch.randn((2, 6, 20, 17), generator=torch.Generator().manual_seed(5))
+    before = _ext.launch_counts()["resize_bwd"]
+    (resize_bilinear(x_gpu, (20, 17)) * w.to(cuda)).sum().backward()
+    (resize_bilinear(x_cpu, (20, 17)) * w).sum().backward()
+    assert x_gpu.grad is not None
+    assert _ext.launch_counts()["resize_bwd"] == before + 1
+    torch.testing.assert_close(x_gpu.grad.cpu(), x_cpu.grad, atol=1e-6, rtol=0)
+
+
+def test_bn_relu_kernel_refuses_autograd(cuda):
+    x = cl(torch.randn((1, 4, 3, 3), device=cuda))
+    scale = torch.ones(4, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bn_relu.fused_bn_relu(x, scale, *(torch.ones(4, device=cuda),) * 3)
+
+
+def test_reparameterize_kernel_refuses_autograd(cuda):
+    mu = torch.zeros((2, 3), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        reparam.reparameterize(mu, torch.zeros((2, 3), device=cuda), 1)
+
+
+def test_normal_kernel_output_is_a_constant_of_the_graph(cuda):
+    assert not reparam.normal((2, 3), 1, cuda).requires_grad
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """resnet18 at 64^2, batch 2, fp32 with TF32 off, the same weights,
+    batch and noise on both devices: loss atol 1e-5, running statistics
+    atol 1e-4 + rtol 1e-3, parameters atol 2 lr + 1e-6 (the first Adam
+    step is lr g / (|g| + eps), whose sign can flip where |g| is near 0).  On the
+    card the step runs through the conv, resize, resize-backward kernels."""
+    lr = 1e-3
+    config = TrainConfig(backbone="resnet18", batch_size=2, gradient_accumulation_steps=1,
+                         amp=False, patch_size=64, learning_rate=lr)
+    g = torch.Generator().manual_seed(6)
+    images = torch.rand((2, 64, 64, 3), generator=g)
+    masks = (torch.rand((2, 64, 64, 1), generator=g) > 0.9).float()
+    eps = torch.randn((1, 2, 32), generator=g)
+    out = []
+    for device in (cuda, "cpu"):
+        state = create_train_state(config, seed=0, device=device)
+        _ext.reset_launch_counts()
+        state, aux = make_train_step(config, state.model)(state, images, masks, 0.001, eps=eps)
+        if device == cuda:
+            counts = _ext.launch_counts()
+            assert counts["conv_bn_stats"] == 13 + 8      # resnet18 encoder 13, decoder 8
+            assert counts["resize"] == counts["resize_bwd"] == 5
+        assert all(p.grad is not None for p in state.model.parameters())
+        out.append((aux["loss"].item(), {k: v.detach().cpu()
+                                         for k, v in state.model.state_dict().items()}))
+    (loss_gpu, sd_gpu), (loss_cpu, sd_cpu) = out
+    assert abs(loss_gpu - loss_cpu) <= 1e-5
+    for k, v in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if "running_" in k:
+            torch.testing.assert_close(sd_gpu[k], v, atol=1e-4, rtol=1e-3, msg=k)
+        else:
+            torch.testing.assert_close(sd_gpu[k], v, atol=2 * lr + 1e-6, rtol=0, msg=k)

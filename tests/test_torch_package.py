@@ -19,14 +19,18 @@ from vaeunet_tpu_torch import (
     segmentation_distribution,
 )
 from vaeunet_tpu_torch.ops import _ext
-from vaeunet_tpu_torch.ops.pallas import bn_relu, reparam, resize_mm
+from vaeunet_tpu_torch.ops.pallas import bn_relu, conv_bn_stats, reparam, resize_mm
 
 REPO = Path(__file__).resolve().parents[1]
 
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, vaeunet_tpu_torch, vaeunet_tpu_torch.inference, "
-            "vaeunet_tpu_torch.compat, vaeunet_tpu_torch.vae_utils; "
+            "vaeunet_tpu_torch.compat, vaeunet_tpu_torch.vae_utils, "
+            "vaeunet_tpu_torch.losses, vaeunet_tpu_torch.metrics, vaeunet_tpu_torch.training, "
+            "vaeunet_tpu_torch.training.config, vaeunet_tpu_torch.training.state, "
+            "vaeunet_tpu_torch.training.step, vaeunet_tpu_torch.training.schedule, "
+            "vaeunet_tpu_torch.ops.pallas.conv_bn_stats, vaeunet_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")
@@ -82,6 +86,10 @@ def test_wrappers_raise_on_devices_they_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         resize_mm.resize(x, (16, 16), True)
     with pytest.raises(ValueError, match="unsupported device"):
+        resize_mm.resize_backward(x, (4, 4), True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv_bn_stats.conv3x3_bn_stats(x, torch.empty((2, 4, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
         reparam.normal((2, 3), 0, "meta")
     with pytest.raises(ValueError, match="64-bit"):
         reparam.normal((2, 3), -1, "cpu")
@@ -93,7 +101,12 @@ def test_cpu_path_counts_no_launches():
     resize_mm.resize(x, (16, 16), True)
     bn_relu.fused_bn_relu(x, *(torch.ones(4),) * 4)
     reparam.normal((2, 3), 0, "cpu")
-    assert _ext.launch_counts() == {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0}
+    x.requires_grad_(True)
+    resize_mm.resize(x, (16, 16), True).sum().backward()
+    y, s, q = conv_bn_stats.conv3x3_bn_stats(x, torch.randn(5, 4, 3, 3))
+    (y.sum() + s.sum() + q.sum()).backward()
+    assert _ext.launch_counts() == {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
+                                    "resize_bwd": 0, "conv_bn_stats": 0}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -9,8 +9,10 @@ version beside its wrapper.
 
 Ported so far: the N-sample uncertainty serving path of the ResNet
 VAE-UNet (``inference.segmentation_distribution``, ``uncertainty_maps``,
-``predict_image``, ``predict_tiled_ensemble``).  Entry points run on CUDA
-unless the caller passes ``device="cpu"``.
+``predict_image``, ``predict_tiled_ensemble``) and its train and eval steps
+(``training.create_train_state``, ``make_train_step``, ``make_eval_step``,
+with ``losses`` and ``metrics``).  Entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +27,12 @@ from vaeunet_tpu_torch.inference import (
     uncertainty_maps,
 )
 from vaeunet_tpu_torch.compat import convert_jax_unet_resnet, load_jax_variables
+from vaeunet_tpu_torch.training import (
+    TrainConfig,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
 
 __all__ = [
     "resolve_device",
@@ -39,4 +47,8 @@ __all__ = [
     "uncertainty_maps",
     "convert_jax_unet_resnet",
     "load_jax_variables",
+    "TrainConfig",
+    "create_train_state",
+    "make_eval_step",
+    "make_train_step",
 ]

@@ -13,7 +13,8 @@
 // and stores when C % 4 == 0.  The product and the sum are rounded
 // separately (__fmul_rn, __fadd_rn) so that the plain PyTorch version
 // gives the same bits.  bf16 inputs are computed in fp32 and rounded once
-// on store, as the TPU kernel does.
+// on store, as the TPU kernel does.  There is no backward: the kernel is
+// for eval mode, and its wrapper raises if autograd would need one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -18,6 +18,9 @@
 // The arithmetic is written with explicit _rn intrinsics so that no
 // multiply-add is contracted and the plain PyTorch version
 // (ops/pallas/reparam.py) reproduces it up to the ulps of logf/cosf/expf.
+// Neither kernel has a backward: training draws eps with the noise kernel
+// and keeps z = mu + eps * std in differentiable torch, and the fused
+// kernel's wrapper raises if autograd would need one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

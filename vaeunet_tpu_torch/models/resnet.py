@@ -13,8 +13,13 @@ Returns the 5 feature maps the reference gets from
 
 Attribute names are the reference state-dict names (``conv1``, ``bn1``,
 ``layer1.0.conv1``, ``layer2.0.downsample.0``, ...).  The stem BN and every
-block's ``bn1`` are BN -> ReLU pairs and go through :func:`bn_relu`.  The
-bottleneck backbones (resnet50/101) are not ported yet.
+block's ``bn1`` are BN -> ReLU pairs and go through :func:`bn_relu` in eval
+mode.  In training, every stride-1 3x3 conv -> BN pair (each block's
+``conv2``/``bn2`` and the stride-1 ``conv1``/``bn1``) goes through
+:func:`conv3x3_bn`, the fused conv + moments kernel: 29 per resnet34
+forward.  The stem 7x7 and the stride-2 ``conv1``s keep ``F.conv2d`` and a
+batch-statistics BN.  The bottleneck backbones (resnet50/101) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu
+from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu, conv3x3_bn
 from vaeunet_tpu_torch.ops.pool import max_pool
 
 # backbone name -> (stage sizes, bottleneck?)
@@ -54,8 +59,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        y = bn_relu(self.conv1(x), self.bn1)
-        y = self.bn2(self.conv2(y))
+        y = conv3x3_bn(self.conv1, self.bn1, x, relu=True)
+        y = conv3x3_bn(self.conv2, self.bn2, y, relu=False)
         return F.relu(y + identity)
 
 

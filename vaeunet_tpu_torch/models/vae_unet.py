@@ -14,7 +14,12 @@ pre-upsample gate) is an exact rewrite of it with the same parameters.
 
 Every eval BN -> ReLU pair (``z_initial``, ``z_proj``, decoder ``bn1`` /
 ``bn2`` and the encoder's) goes through the fused kernel; the gate BNs and
-the BNs before a residual add are plain ``nn.BatchNorm2d``.
+the BNs before a residual add are plain ``nn.BatchNorm2d``.  In training,
+the decoder's ``conv1``/``bn1`` and ``conv2``/``bn2`` take the fused conv +
+moments kernel (:func:`conv3x3_bn`, 8 per forward).  The ``z_proj`` BN
+sees the latent broadcast over B x H x W, so its unbiased running-variance
+factor uses that count, which is what the JAX fused decoder's
+``virtual_n=b*h*w`` restores (``vae_unet.py:196-202``).
 
 Injection strategies (unet_resnet.py:104-123):
   'all'                  bottleneck + all 4 decoder levels
@@ -37,7 +42,7 @@ import torch.nn.functional as F
 
 from vaeunet_tpu_torch.device import resolve_device, use_fp32_numerics
 from vaeunet_tpu_torch.models.resnet import ResNetEncoder
-from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu
+from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu, conv3x3_bn
 from vaeunet_tpu_torch.ops.pool import avg_pool_global
 from vaeunet_tpu_torch.ops.resize import broadcast_latent_spatial, resize_bilinear
 from vaeunet_tpu_torch.ops.sampling import gaussian_like
@@ -126,8 +131,8 @@ class DecoderBlock(nn.Module):
             z_sp = self.z_proj[0](broadcast_latent_spatial(z, out_hw))
             components.append(bn_relu(z_sp, self.z_proj[1]))
         y = torch.cat(components, dim=1)
-        y = bn_relu(self.conv1[0](y), self.conv1[1])
-        return bn_relu(self.conv2[0](y), self.conv2[1])
+        y = conv3x3_bn(self.conv1[0], self.conv1[1], y, relu=True)
+        return conv3x3_bn(self.conv2[0], self.conv2[1], y, relu=True)
 
 
 class UNetResNet(nn.Module):
@@ -198,10 +203,12 @@ class UNetResNet(nn.Module):
         """z = mu + eps * std * T.  (unet_resnet.py:191-194)
 
         eps comes from the noise kernel (``ops.sampling.gaussian_like``),
-        whose only input is a seed; the mu/logvar arithmetic stays ordinary
-        differentiable torch.  No logvar guard beyond the head's clamp."""
+        whose only input is a seed, in std's type (bf16 under amp, as the
+        JAX draw takes ``std.dtype``); the mu/logvar arithmetic stays
+        ordinary differentiable torch.  No logvar guard beyond the head's
+        clamp."""
         std = torch.exp(0.5 * logvar)
-        eps = gaussian_like(generator, std.shape, std.device, eps=eps)
+        eps = gaussian_like(generator, std.shape, std.device, eps=eps).to(std.dtype)
         return mu + eps * std * temperature
 
     def decode_features(self, z: torch.Tensor, features: Sequence[torch.Tensor],
@@ -224,16 +231,18 @@ class UNetResNet(nn.Module):
     # ----- forward ------------------------------------------------------
 
     def forward(self, x: torch.Tensor, sample: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
         """-> (logits, mu, logvar).  (unet_resnet.py:196-240)
 
         `sample=None` follows the injection strategy; sample=False is the
-        deterministic z = mu forward.
+        deterministic z = mu forward.  A sampled z draws its noise from
+        `generator`, or takes `eps` [B, latent_dim] as given.
         """
         input_hw = tuple(x.shape[2:])
         mu, logvar, features = self.encode_with_features(x)
         do_sample = self.should_sample if sample is None else sample
-        z = self.reparameterize(mu, logvar, generator) if do_sample else mu
+        z = self.reparameterize(mu, logvar, generator, eps=eps) if do_sample else mu
         logits = self.decode_features(z, features, output_hw=input_hw)
         return logits, mu, logvar
 

@@ -38,6 +38,7 @@ _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 _F = ctypes.c_float
 _RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+_CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 
 # library -> {C function: argtypes}; every function returns int (cudaError_t)
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -52,17 +53,33 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "resize": {
         "vaeunet_resize_f32": _RESIZE_ARGS,
         "vaeunet_resize_bf16": _RESIZE_ARGS,
+        "vaeunet_resize_bwd_f32": _RESIZE_ARGS,
+        "vaeunet_resize_bwd_bf16": _RESIZE_ARGS,
+    },
+    "conv_bn_stats": {
+        "vaeunet_conv3x3_stats_f32": _CONV_ARGS,
+        "vaeunet_conv3x3_stats_bf16": _CONV_ARGS,
     },
 }
 
 # kernel -> launches since the last reset
-LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0}
+LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
+                            "resize_bwd": 0, "conv_bn_stats": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
+
+
+def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would run under autograd:
+    its output would come back detached and cut the graph without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward; call it under torch.no_grad() "
+            f"or with inputs that do not require grad")
 
 
 def reset_launch_counts() -> None:

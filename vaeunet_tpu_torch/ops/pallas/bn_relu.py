@@ -51,13 +51,16 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
 
 def fused_bn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Folded eval BN + ReLU of a channels_last NCHW tensor."""
+    """Folded eval BN + ReLU of a channels_last NCHW tensor.  The kernel
+    has no backward: on CUDA it raises under autograd (the plain CPU
+    version stays differentiable)."""
     a, b = fold(scale, bias, mean, var, eps)
     _check(x, a, b)
     if x.device.type == "cpu":
         return fused_bn_relu_plain(x, a, b)
     if x.device.type != "cuda":
         raise ValueError(f"bn_relu: unsupported device {x.device}")
+    _ext.refuse_autograd("bn_relu", x, scale, bias, mean, var)
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
         return y

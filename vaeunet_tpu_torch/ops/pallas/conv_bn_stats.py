@@ -1,0 +1,125 @@
+"""3x3 convolution with the training BatchNorm's moments: the CUDA kernel's
+wrapper and its plain version.  Port of
+``vaeunet_tpu/ops/pallas/conv_bn_stats.py`` (``conv3x3_bn_stats``, its
+forward ``_conv3x3_stats_fwd`` and VJP ``_bwd``).
+
+``conv3x3_bn_stats(x, weight) -> (y, s, q)``: a 3x3, pad 1, stride 1,
+bias-free convolution of a channels_last NCHW ``x`` (float32 or bfloat16)
+with an OIHW ``weight`` of the same type, returning y in x's type and the
+per-channel fp32 sum ``s`` and sum of squares ``q`` of y over (N, H, W),
+taken from the fp32 accumulator before y is rounded.  A CUDA tensor goes to
+``csrc/conv_bn_stats.cu``; a CPU tensor to :func:`conv3x3_bn_stats_plain`.
+
+The backward follows ``_bwd``: the moment cotangents fold into the output
+cotangent, g = gy + gs + 2 y gq in fp32 (plain torch; a missing cotangent
+counts as zero), cast to x's type, then the standard convolution VJPs,
+which the JAX package leaves to XLA's convolutions and the port to
+``torch.ops.aten.convolution_backward`` (cuDNN on the card).  Callers cast
+an fp32 weight to x's type *before* the call, so autograd carries the
+cast's own backward.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from vaeunet_tpu_torch.ops import _ext
+
+_DTYPES = (torch.float32, torch.bfloat16)
+# output tile of csrc/conv_bn_stats.cu (kTH x kTW); one scratch row per tile
+TILE_H, TILE_W = 8, 16
+
+
+def conv3x3_bn_stats_plain(x: torch.Tensor, weight: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``F.conv2d`` (pad 1), moments over (N, H, W) from the fp32
+    output, y cast to x's type."""
+    y32 = F.conv2d(x.float(), weight.float(), padding=1)
+    s = y32.sum(dim=(0, 2, 3))
+    q = (y32 * y32).sum(dim=(0, 2, 3))
+    return y32.to(x.dtype).contiguous(memory_format=torch.channels_last), s, q
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"conv3x3_bn_stats expects NCHW, got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv3x3_bn_stats takes float32 or bfloat16, not {x.dtype}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv3x3_bn_stats expects a channels_last-contiguous x")
+    if weight.dim() != 4 or tuple(weight.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError(f"conv3x3_bn_stats: weight must be [Co, {x.shape[1]}, 3, 3], "
+                         f"got {tuple(weight.shape)}")
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise ValueError("conv3x3_bn_stats: weight must have x's dtype and device "
+                         "(cast it before the call)")
+
+
+def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
+    b, ci, h, w = x.shape
+    co = weight.shape[0]
+    y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    s = torch.zeros(co, dtype=torch.float32, device=x.device)
+    q = torch.zeros(co, dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, s, q
+    w_hwio = weight.permute(2, 3, 1, 0).contiguous()
+    tiles = b * (-(-h // TILE_H)) * (-(-w // TILE_W))
+    part = torch.empty((2, tiles, co), dtype=torch.float32, device=x.device)
+    fn = "vaeunet_conv3x3_stats_f32" if x.dtype == torch.float32 else "vaeunet_conv3x3_stats_bf16"
+    _ext.call("conv_bn_stats", fn, x.device, x.data_ptr(), w_hwio.data_ptr(), y.data_ptr(),
+              part[0].data_ptr(), part[1].data_ptr(), s.data_ptr(), q.data_ptr(),
+              b, h, w, ci, co, tiles)
+    _ext.count_launch("conv_bn_stats")
+    return y, s, q
+
+
+def fold_cotangents(y: torch.Tensor, gy, gs, gq, dtype: torch.dtype) -> torch.Tensor:
+    """g = gy + gs + 2 y gq per channel, in fp32, cast to `dtype`
+    (``conv_bn_stats.py:130-134``); None stands for a zero cotangent."""
+    g = torch.zeros_like(y, dtype=torch.float32) if gy is None else gy.float()
+    if gs is not None:
+        g = g + gs.view(1, -1, 1, 1)
+    if gq is not None:
+        g = g + 2.0 * y.float() * gq.view(1, -1, 1, 1)
+    return g.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+class _Conv3x3BnStats(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            y, s, q = conv3x3_bn_stats_plain(x, weight)
+        elif x.device.type == "cuda":
+            y, s, q = _forward_cuda(x, weight)
+        else:
+            raise ValueError(f"conv3x3_bn_stats: unsupported device {x.device}")
+        ctx.save_for_backward(x, weight, y)
+        return y, s, q
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gs, gq):
+        x, weight, y = ctx.saved_tensors
+        if gy is None and gs is None and gq is None:
+            return None, None
+        g = fold_cotangents(y, gy, gs, gq, x.dtype)
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g, x, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw
+
+
+def conv3x3_bn_stats(x: torch.Tensor, weight: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, s, q) of a 3x3 pad-1 stride-1 bias-free convolution; see the
+    module docstring.  Differentiable in x and weight through all three."""
+    _check(x, weight)
+    return _Conv3x3BnStats.apply(x, weight)

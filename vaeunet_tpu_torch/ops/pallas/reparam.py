@@ -82,7 +82,9 @@ def normal_plain(shape: Sequence[int], seed: int, device="cpu") -> torch.Tensor:
 
 
 def normal(shape: Sequence[int], seed: int, device) -> torch.Tensor:
-    """Standard-normal fp32 tensor of `shape` on `device` from `seed`."""
+    """Standard-normal fp32 tensor of `shape` on `device` from `seed`.  It
+    has no tensor input, so autograd has nothing to lose here: the draw is
+    a constant of the graph."""
     device = torch.device(device)
     seed = _check_seed(seed)
     if device.type == "cpu":
@@ -121,6 +123,8 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
 
     No clamp of logvar, exactly like ``reparameterize_pallas``: callers
     that need a guard (``vae_utils.sample_latents``) clip before the call.
+    The kernel has no backward: on CUDA it raises under autograd (training
+    draws eps with :func:`normal` and keeps the arithmetic in torch).
     """
     _check_pair(mu, logvar)
     seed = _check_seed(seed)
@@ -128,6 +132,7 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
         return reparameterize_plain(mu, logvar, seed, temperature)
     if mu.device.type != "cuda":
         raise ValueError(f"reparameterize: unsupported device {mu.device}")
+    _ext.refuse_autograd("reparameterize", mu, logvar)
     z = torch.empty_like(mu)
     if z.numel() == 0:
         return z

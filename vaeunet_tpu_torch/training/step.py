@@ -1,0 +1,165 @@
+"""The train and eval steps.  Port of ``vaeunet_tpu/training/step.py``
+(``_forward_loss``, ``make_train_step``, ``make_eval_step``).
+
+- forward (BN batch statistics updated) -> Dice + BCE (or the MA rule) +
+  beta * KL with free bits, logits cast to fp32 before the loss;
+- gradient accumulation over ``gradient_accumulation_steps`` microbatches:
+  the mean of the microbatch gradients, the BN running statistics threaded
+  through the microbatches in turn, one latent draw per microbatch (the JAX
+  ``lax.scan``, here a Python loop);
+- clip to global norm 1.0 and AdamW (``training/state.py``);
+- ``config.amp``: the images are cast to bf16 and every layer computes in
+  its input's type (``ops/layers.py``), as the JAX step casts them
+  (``step.py:39-40``); parameters, BN statistics and the loss stay fp32.
+  No ``torch.autocast``.
+
+Images and masks come NHWC, as the JAX step takes them ([B, H, W, 3] and
+[B, H, W, n_classes]); the model sees NCHW in channels_last memory, a free
+view of the same bytes.  beta is a plain float.
+
+Not ported yet: the device-cache ``indexed`` variant, ``augment=True``,
+deep supervision, ``multi_temp_training_step`` and the data-parallel
+``axis_name`` all-reduce.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from vaeunet_tpu_torch.device import as_image
+from vaeunet_tpu_torch.losses import kl_with_free_bits, make_criterion
+from vaeunet_tpu_torch.metrics import get_all_metrics
+from vaeunet_tpu_torch.ops.resize import resize_bilinear
+from vaeunet_tpu_torch.training.config import TrainConfig
+from vaeunet_tpu_torch.training.state import TrainState
+
+
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def to_model_layout(images, device: torch.device) -> torch.Tensor:
+    """NHWC images (numpy or torch) -> NCHW channels_last fp32 on `device`."""
+    x = as_image(images, device).permute(0, 3, 1, 2)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def forward_loss(model: torch.nn.Module, criterion: Callable, config: TrainConfig,
+                 images: torch.Tensor, masks: torch.Tensor, beta: float,
+                 generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """One training forward (``step.py:35-74``): images NCHW channels_last
+    fp32, masks NHWC fp32 -> (loss, aux)."""
+    if config.amp:
+        images = images.to(torch.bfloat16)
+    logits, mu, logvar = model(images, generator=generator, eps=eps)
+    logits = logits.float().permute(0, 2, 3, 1)
+    recon = criterion(logits, masks)
+    kl = kl_with_free_bits(mu, logvar, free_bits=config.free_bits,
+                           clamp_leak=config.kl_clamp_leak)
+    loss = recon + beta * kl
+    aux = {"loss": loss, "recon_loss": recon, "kl_loss": kl,
+           "mu": mu.float(), "logvar": logvar.float()}
+    return loss, aux
+
+
+def make_train_step(config: TrainConfig, model: torch.nn.Module,
+                    criterion: Optional[Callable] = None):
+    """-> ``step(state, images, masks, beta, eps=None) -> (state, aux)``,
+    one optimizer step on `model` (the state's model), in place.
+    ``images`` is [accum * micro, H, W, C]; ``eps``, if given, is the
+    latent noise [accum, micro, latent_dim], otherwise each microbatch
+    draws its own from ``state.generator``.  aux
+    holds ``loss``, ``recon_loss``, ``kl_loss`` (means over microbatches)
+    and ``mu``, ``logvar`` [B, latent_dim], all detached.
+
+    ``step.compute_gradients(state, images, masks, beta, eps=None) ->
+    aux`` stops before the clip: the parameters' ``.grad`` then hold the
+    mean of the microbatch gradients.
+    """
+    if config.deep_supervision:
+        raise ValueError("deep supervision is not ported yet")
+    criterion = criterion or make_criterion(config.lesion_type, config.loss)
+    accum = max(1, config.gradient_accumulation_steps)
+
+    def compute_gradients(state: TrainState, images, masks, beta: float,
+                          eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        model.train()
+        device = _device(model)
+        x = to_model_layout(images, device)
+        m = torch.as_tensor(masks, dtype=torch.float32, device=device)
+        b = x.shape[0]
+        micro = b // accum
+        if micro * accum != b:
+            raise ValueError(f"batch {b} not divisible by accumulation {accum}")
+        if eps is not None:
+            eps = torch.as_tensor(eps, dtype=torch.float32, device=device)
+            if tuple(eps.shape[:2]) != (accum, micro):
+                raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
+                                 f"[{accum}, {micro}, latent_dim]")
+        state.optimizer.zero_grad()
+        auxes = []
+        for i in range(accum):
+            sl = slice(i * micro, (i + 1) * micro)
+            loss, aux = forward_loss(model, criterion, config, x[sl], m[sl], beta,
+                                     generator=state.generator,
+                                     eps=None if eps is None else eps[i])
+            loss.backward()
+            auxes.append({k: v.detach() for k, v in aux.items()})
+        if accum > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+        out = {k: torch.stack([a[k] for a in auxes]).mean()
+               for k in ("loss", "recon_loss", "kl_loss")}
+        out["mu"] = torch.cat([a["mu"] for a in auxes])
+        out["logvar"] = torch.cat([a["logvar"] for a in auxes])
+        return out
+
+    def step(state: TrainState, images, masks, beta: float,
+             eps: Optional[torch.Tensor] = None):
+        aux = compute_gradients(state, images, masks, beta, eps)
+        state.optimizer.step()
+        state.step += 1
+        return state, aux
+
+    step.compute_gradients = compute_gradients
+    return step
+
+
+def make_eval_step(config: TrainConfig, model: torch.nn.Module,
+                   apply_sigmoid_for_metrics: bool = False):
+    """Validation step (``step.py:232-274``, reference evaluate.py:20-101).
+
+    ``eval_step(images, masks, generator=None, valid=None, eps=None) ->
+    (metrics, logits)``: eval-mode BN but a *sampled* z when the injection
+    strategy samples (the reference draws it even under inference mode),
+    metrics on raw logits at 0.5 unless `apply_sigmoid_for_metrics`, the
+    logits resized to the mask's H x W on a mismatch, and ``valid`` ([B]
+    0/1) dropping padded rows.  logits come back NHWC fp32.
+    """
+
+    @torch.inference_mode()
+    def step(images, masks, generator: Optional[torch.Generator] = None,
+             valid=None, eps: Optional[torch.Tensor] = None):
+        model.eval()
+        device = _device(model)
+        x = to_model_layout(images, device)
+        m = torch.as_tensor(masks, dtype=torch.float32, device=device)
+        if config.amp:
+            x = x.to(torch.bfloat16)
+        logits, _, _ = model(x, generator=generator, eps=eps)
+        logits = logits.float()
+        if tuple(logits.shape[2:]) != tuple(m.shape[1:3]):
+            logits = resize_bilinear(logits, tuple(m.shape[1:3]), align_corners=True)
+        logits = logits.permute(0, 2, 3, 1)
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=device)
+        metrics = get_all_metrics(logits, m, apply_sigmoid=apply_sigmoid_for_metrics,
+                                  valid=valid)
+        return metrics, logits
+
+    return step

@@ -1,18 +1,22 @@
-"""Where a serving request's device time goes.  Port of the tracing role of
-``vaeunet_tpu/utils/profiling.py`` (its ``trace`` context manager around
-``jax.profiler``), here over ``torch.profiler``.
+"""Where a serving request's or a training step's device time goes.  Port
+of the tracing role of ``vaeunet_tpu/utils/profiling.py`` (its ``trace``
+context manager around ``jax.profiler``), here over ``torch.profiler``.
 
-    python -m vaeunet_tpu_torch.utils.profiling
+    python -m vaeunet_tpu_torch.utils.profiling            # one request
+    python -m vaeunet_tpu_torch.utils.profiling --train    # one train step
 
-runs one N-sample uncertainty request (the full-resolution tiled request of
-``chip_smoke.py``) under ``torch.profiler`` on the card and prints the
-device time by kernel family and the top kernels, the wall time, and the
-device's idle share (1 - summed kernel time / wall time; one stream, so
-kernels do not overlap).  Needs a CUDA card.
+runs, after a warm-up, one N-sample uncertainty request (the
+full-resolution tiled request of ``chip_smoke.py``), or one warm training
+step (the 512^2 batch-16 bf16 step of ``chip_smoke.py`` phase 6), under
+``torch.profiler`` on the card and prints the device time by kernel family
+and the top kernels, the wall time, and the device's idle share (1 - summed
+kernel time / wall time; one stream, so kernels do not overlap).  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from collections import defaultdict
@@ -21,12 +25,16 @@ from typing import Callable, Dict
 import torch
 
 from vaeunet_tpu_torch import build_model, segmentation_distribution, uncertainty_maps
+from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
+    ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_kernel", "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
+    ("resize_bwd (this port's kernel)", ("resize_bilinear_bwd_kernel",)),
     ("resize", ("resize_bilinear_kernel",)),
     ("normal/reparam", ("normal_kernel", "reparam_kernel")),
+    ("optimizer (foreach AdamW, clip)", ("multi_tensor_apply", "adam")),
     ("batch_norm (gate, residual)", ("batch_norm", "bn_fw_inf")),
     ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "implicit_gemm", "cutlass", "sm90_",
                              "winograd", "fft", "DSE::", "pointwise_mult_and_sum_complex",
@@ -55,7 +63,10 @@ def device_breakdown(fn: Callable[[], None]) -> Dict:
         wall = time.perf_counter() - t0
     per_kernel = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # annotation spans on the device timeline (e.g. Optimizer.step)
+        # cover kernels counted on their own; they are not kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             rec = per_kernel[e.name]
             rec[0] += e.time_range.elapsed_us() * 1e-6
             rec[1] += 1
@@ -70,9 +81,7 @@ def device_breakdown(fn: Callable[[], None]) -> Dict:
             "families": dict(per_family), "kernels": dict(per_kernel)}
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profiling: no CUDA device is available")
+def serving_request() -> Callable[[], None]:
     model = build_model(seed=0, device="cuda")
     # one IDRiD fundus at full resolution; 512 tiles, overlap 100, N=10
     image = torch.rand((2848, 4288, 3), device="cuda",
@@ -84,9 +93,39 @@ def main() -> None:
             patch_size=512, overlap=100)
         uncertainty_maps(samples)
 
-    request()                                      # warm-up: library load, cuDNN plans
-    out = device_breakdown(request)
-    print(f"device: {torch.cuda.get_device_name(0)}  (fp32, TF32 off)")
+    return request
+
+
+def train_step() -> Callable[[], None]:
+    config = TrainConfig(model_type="resnet", batch_size=16, gradient_accumulation_steps=1,
+                         amp=True, patch_size=512, learning_rate=1e-4)
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((16, 512, 512, 3), device="cuda", generator=g)
+    masks = (torch.rand((16, 512, 512, 1), device="cuda", generator=g) > 0.9).float()
+
+    def run():
+        _, aux = step(state, images, masks, 0.001)
+        aux["loss"].item()
+
+    return run
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--train", action="store_true",
+                        help="profile one warm 512^2 batch-16 bf16 training step")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device is available")
+    fn = train_step() if args.train else serving_request()
+    fn()                                           # warm-up: library load, cuDNN plans
+    if args.train:
+        fn()
+    out = device_breakdown(fn)
+    what = "bf16 train step, 512^2 batch 16" if args.train else "fp32 request, TF32 off"
+    print(f"device: {torch.cuda.get_device_name(0)}  ({what})")
     print(f"wall {out['wall_s']:.3f} s  device busy {out['device_s']:.3f} s  "
           f"idle share {out['idle_share']:.3f}")
     for fam, (sec, n) in sorted(out["families"].items(), key=lambda kv: -kv[1][0]):
