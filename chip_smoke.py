@@ -10,7 +10,9 @@ the card, in phases that each fail the run with a non-zero exit:
 2. build: every ``vaeunet_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes its path gives it, with timings (CUDA events) beside the
-   bound and a PyTorch yardstick;
+   bound and a PyTorch yardstick; the bf16 conv kernel at all 12 conv shapes
+   of the training step, a repeat call bit for bit, and its time per step
+   (launches x ms) against ``F.conv2d`` plus the two sums;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -249,6 +251,16 @@ def kernel_resize(table: dict) -> None:
     log(f"resize bf16 [8,128,128,128]->256^2: max err {(y - ref).abs().max().item():.3g}")
 
 
+def paired_ms(fns: dict, iters: int, rounds: int = 3) -> dict:
+    """time_ms of each fn, in turns over `rounds` rounds, the least of each:
+    calls whose time is the host's launch work vary between rounds."""
+    best = {k: float("inf") for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            best[k] = min(best[k], time_ms(fn, iters))
+    return best
+
+
 def kernel_noise(table: dict) -> None:
     for shape in ((8192, 64), (3, 32), (1, 32)):
         z = reparam_mod.normal(shape, 11, "cuda")
@@ -265,13 +277,15 @@ def kernel_noise(table: dict) -> None:
             check(abs(m) < 0.01 and abs(s - 1) < 0.01, f"normal moments {m} {s}")
             log(f"normal [8192, 64]: mean {m:.5f} std {s:.5f}")
         n = z.numel()
-        it = 200
-        k_ms = time_ms(lambda: reparam_mod.normal(shape, 11, "cuda"), it)
-        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"), it)
-        l_ms = time_ms(lambda: torch.randn(shape, device="cuda"), it)
+        dev = torch.device("cuda")
+        t = paired_ms({"kernel": lambda: reparam_mod.normal(shape, 11, dev),
+                       "randn": lambda: torch.randn(shape, device=dev)}, 1000)
+        k_ms, l_ms = t["kernel"], t["randn"]
+        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"), 200)
         bnd, by = bound_ms(4 * n, PHILOX_BOX_MULLER_OPS * n)
         log(f"normal {list(shape)}: err {err:.3g}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"torch.randn {l_ms:.4f} ms  bound {bnd:.6f} ms")
+            f"torch.randn {l_ms:.4f} ms  bound {bnd:.6f} ms  "
+            f"(kernel {'no slower than' if k_ms <= l_ms else 'SLOWER than'} torch.randn)")
         main = shape == (1, 32)
         _record(table, "normal", err=err, **(dict(
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
@@ -315,67 +329,118 @@ def kernel_reparam(table: dict) -> None:
             bound_ms=bnd, bound_by=by, shape="[10, 32]")
 
 
-CONV_SHAPES = (((16, 64, 128, 128), 64),    # encoder stage 1 at 512^2
-               ((16, 224, 256, 256), 64),   # decoder_3 conv1: [x 128, skip 64, z 32]
-               ((16, 800, 32, 32), 512),    # decoder_0 conv1: [x 512, skip 256, z 32]
-               ((2, 5, 12, 13), 7))         # ragged: Ci, Co, H, W off every tile
+# (x NCHW, Co, launches per step) of the 512^2 batch-16 step's 37 conv-kernel
+# launches: encoder stages 1-4 (every block's conv2 and its stride-1 conv1),
+# then decoder_0..3 conv1 ([x, skip, z] in) and conv2
+CONV_STEP = (((16, 64, 128, 128), 64, 6), ((16, 128, 64, 64), 128, 7),
+             ((16, 256, 32, 32), 256, 11), ((16, 512, 16, 16), 512, 5),
+             ((16, 800, 32, 32), 512, 1), ((16, 512, 32, 32), 512, 1),
+             ((16, 672, 64, 64), 256, 1), ((16, 256, 64, 64), 256, 1),
+             ((16, 352, 128, 128), 128, 1), ((16, 128, 128, 128), 128, 1),
+             ((16, 224, 256, 256), 64, 1), ((16, 64, 256, 256), 64, 1))
+# fp32 (the SIMT kernel, off the training path) at three of them, and a
+# ragged case in both types: Ci % 8 != 0 (padded), Co, H, W off every tile
+CONV_FP32 = (((16, 64, 128, 128), 64), ((16, 224, 256, 256), 64), ((16, 800, 32, 32), 512))
+CONV_RAGGED = ((2, 5, 12, 13), 7)
 CONV_MAIN = ((16, 224, 256, 256), 64, torch.bfloat16)
 
 
-def kernel_conv_bn_stats(table: dict) -> None:
+def conv_launch_only(x, w):
+    """The bf16 kernel's launch alone, its operands made beforehand: the
+    device time where the wrapper's host work would hide it."""
+    b, ci, h, wd = x.shape
+    co = w.shape[0]
+    wk = conv_mod.weights_k_major(w, ci)
+    y = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    tiles = conv_mod.scratch_rows(b, h, wd)
+    buf = torch.empty(2 * (tiles + 1) * co, device=x.device)
+    p = buf.data_ptr()
+    args = (x.data_ptr(), wk.data_ptr(), y.data_ptr(), p + 8 * co, p + 8 * co + 4 * tiles * co,
+            p, p + 4 * co, b, h, wd, ci, co, tiles)
+    return lambda: _ext.call("conv_bn_stats", "vaeunet_conv3x3_stats_bf16_wgmma", x.device, *args)
+
+
+def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
     """y within 1e-5 of the summed magnitudes (conv of |x| with |w|) in
     fp32, the room fp32 rounding in another order needs; in bf16 one bf16
-    ulp more, since the two fp32 values can round to neighbours.  s within
-    1e-5 (fp32) or 1e-4 (bf16) of sum |y|, q relative 1e-5 / 1e-4: both sides
-    sum the same fp32 values in another order."""
-    g = torch.Generator(device="cuda").manual_seed(7)
-    for shape, co in CONV_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
-                memory_format=torch.channels_last)
-            w = (torch.randn((co, shape[1], 3, 3), device="cuda", generator=g)
-                 / (3.0 * shape[1] ** 0.5)).to(dtype)
-            y, s, q = conv_mod.conv3x3_bn_stats(x, w)
-            ry, rs, rq = conv_mod.conv3x3_bn_stats_plain(x, w)
-            mag = F.conv2d(x.float().abs(), w.float().abs(), padding=1)
-            torch.cuda.synchronize()
-            diff = (y.float() - ry.float()).abs()
-            err = diff.max().item()
-            rel = 1e-5 if dtype == torch.float32 else 1e-4
-            room = 1e-5 * mag
-            if dtype != torch.float32:
-                room = room + torch.maximum(y.float().abs(), ry.float().abs()) * 2.0 ** -7
-            check(bool((diff <= room).all()), f"conv_bn_stats {shape}->{co} {dtype}: y outside "
-                  f"tolerance (max err {err})")
-            s_room = rel * ry.float().abs().sum(dim=(0, 2, 3))
-            check(bool(((s - rs).abs() <= s_room).all()), f"conv_bn_stats {shape}: sums differ")
-            check(bool(((q - rq).abs() <= rel * rq).all()), f"conv_bn_stats {shape}: squares differ")
-            s_err = max((s - rs).abs().max().item(), (q - rq).abs().max().item())
-            del mag, diff, room, ry
-            b, ci, h, wd = shape
-            macs = b * h * wd * ci * co * 9
-            esize = x.element_size()
-            nbytes = (x.numel() + w.numel() + b * co * h * wd) * esize + 2 * co * 4
-            peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
-            bnd, by = bound_ms(nbytes, 2.0 * macs, peak)
-            k_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats(x, w))
-            p_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats_plain(x, w))
+    ulp more, since the two fp32 values can round to neighbours (the tensor
+    cores sum in another order than cuDNN's fp32 reference).  s within 1e-5
+    (fp32) or 1e-4 (bf16) of sum |y|, q relative 1e-5 / 1e-4: both sides sum
+    the same fp32 values in another order.  A second call must give the
+    same bits.  `launch_alone` also times the bf16 kernel's launch without
+    the wrapper (Ci a multiple of 8)."""
+    x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = (torch.randn((co, shape[1], 3, 3), device="cuda", generator=g)
+         / (3.0 * shape[1] ** 0.5)).to(dtype)
+    y, s, q = conv_mod.conv3x3_bn_stats(x, w)
+    ry, rs, rq = conv_mod.conv3x3_bn_stats_plain(x, w)
+    mag = F.conv2d(x.float().abs(), w.float().abs(), padding=1)
+    torch.cuda.synchronize()
+    what = f"conv_bn_stats {list(shape)}->{co} {str(dtype)[6:]}"
+    diff = (y.float() - ry.float()).abs()
+    err = diff.max().item()
+    rel = 1e-5 if dtype == torch.float32 else 1e-4
+    room = 1e-5 * mag
+    if dtype != torch.float32:
+        room = room + torch.maximum(y.float().abs(), ry.float().abs()) * 2.0 ** -7
+    check(bool((diff <= room).all()), f"{what}: y outside tolerance (max err {err})")
+    s_room = rel * ry.float().abs().sum(dim=(0, 2, 3))
+    check(bool(((s - rs).abs() <= s_room).all()), f"{what}: sums differ")
+    check(bool(((q - rq).abs() <= rel * rq).all()), f"{what}: squares differ")
+    s_err = max((s - rs).abs().max().item(), (q - rq).abs().max().item())
+    del mag, diff, room, ry
+    y2, s2, q2 = conv_mod.conv3x3_bn_stats(x, w)
+    check(torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(q, q2),
+          f"{what}: a second call gave other bits")
+    del y2, s2, q2
+    b, ci, h, wd = shape
+    macs = b * h * wd * ci * co * 9
+    esize = x.element_size()
+    nbytes = (x.numel() + w.numel() + b * co * h * wd) * esize + 2 * co * 4
+    peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    bnd, by = bound_ms(nbytes, 2.0 * macs, peak)
+    k_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats(x, w))
+    launch_ms = time_auto(conv_launch_only(x, w)) if launch_alone else None
+    p_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats_plain(x, w))
 
-            def library():
-                yl = F.conv2d(x, w, padding=1)
-                return yl.sum(dim=(0, 2, 3), dtype=torch.float32), \
-                    yl.square().sum(dim=(0, 2, 3), dtype=torch.float32)
-            l_ms = time_auto(library)
-            log(f"conv_bn_stats {list(shape)}->{co} {str(dtype)[6:]}: y err {err:.3g} "
-                f"moments err {s_err:.3g}  kernel {k_ms:.4f} ms ({2 * macs / k_ms / 1e9:.1f} "
-                f"TFLOP/s)  plain {p_ms:.4f} ms  F.conv2d+sums {l_ms:.4f} ms  "
-                f"bound {bnd:.4f} ms ({by})")
-            main = (shape, co, dtype) == CONV_MAIN
-            _record(table, "conv_bn_stats", err=err, **(dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
-                shape=f"{list(shape)}->{co} bf16") if main else {}))
-            del x, w, y, s, q
-    torch.cuda.empty_cache()
+    def library():
+        yl = F.conv2d(x, w, padding=1)
+        return yl.sum(dim=(0, 2, 3), dtype=torch.float32), \
+            yl.square().sum(dim=(0, 2, 3), dtype=torch.float32)
+    l_ms = time_auto(library)
+    alone = "" if launch_ms is None else \
+        f" (launch alone {launch_ms:.4f} ms, {2 * macs / launch_ms / 1e9:.1f} TFLOP/s)"
+    log(f"{what}: y err {err:.3g} moments err {s_err:.3g}  kernel {k_ms:.4f} ms "
+        f"({2 * macs / k_ms / 1e9:.1f} TFLOP/s){alone}  plain {p_ms:.4f} ms  "
+        f"F.conv2d+sums {l_ms:.4f} ms  bound {bnd:.4f} ms ({by})")
+    return dict(err=err, ms=k_ms, launch_ms=launch_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=bnd, bound_by=by)
+
+
+def kernel_conv_bn_stats(table: dict) -> None:
+    g = torch.Generator(device="cuda").manual_seed(7)
+    per_step = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
+    for shape, co, n in CONV_STEP:
+        r = conv_case(g, shape, co, torch.bfloat16, launch_alone=True)
+        for k, key in (("kernel", "ms"), ("launch", "launch_ms"), ("library", "library_ms"),
+                       ("bound", "bound_ms")):
+            per_step[k] += n * r[key]
+        main = (shape, co, torch.bfloat16) == CONV_MAIN
+        _record(table, "conv_bn_stats", err=r["err"], **(dict(
+            ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            shape=f"{list(shape)}->{co} bf16") if main else {}))
+        torch.cuda.empty_cache()
+    log(f"conv_bn_stats per 512^2 b16 step (sum of launches x ms over the 37 launches): "
+        f"kernel {per_step['kernel']:.3f} ms (launch alone {per_step['launch']:.3f} ms)  "
+        f"F.conv2d+sums {per_step['library']:.3f} ms  bound {per_step['bound']:.3f} ms")
+    for shape, co in CONV_FP32:
+        _record(table, "conv_bn_stats", err=conv_case(g, shape, co, torch.float32)["err"])
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        _record(table, "conv_bn_stats", err=conv_case(g, *CONV_RAGGED, dtype)["err"])
 
 
 # (input NCHW, output H = W) of the 512^2 batch-16 step's five resizes
@@ -673,7 +738,7 @@ def phase_train_parity() -> None:
 
 
 KERNELS = (
-    ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:53"),
+    ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:54"),
     ("reparam", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:87"),
     ("bn_relu", "vaeunet_tpu_torch/csrc/bn_relu.cu", "vaeunet_tpu/ops/pallas/bn_relu.py:30"),
     ("resize", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),

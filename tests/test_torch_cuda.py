@@ -95,14 +95,14 @@ def _moment_loss(y, s, q):
     return torch.tanh(y.float()).sum() + 0.3 * s.sum() + 0.1 * q.sum()
 
 
-@pytest.mark.parametrize("shape,co", [((2, 5, 12, 13), 7), ((2, 20, 17, 35), 70)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
-    """y and the moments against the fp32 plain version; the Function's
-    backward against the plain version's autograd.  fp32: errors within
-    1e-5 of the magnitudes summed (conv of |x| with |w|, sum of |y|), the
-    room fp32 rounding in another order needs; bf16: y within one bf16 ulp
-    on top of that, since the two fp32 values can round to neighbours."""
+def _check_conv(cuda, shape, co, dtype):
+    """y and the moments against the fp32 plain version, a repeat call bit
+    for bit, the launch count, and the Function's backward against the plain
+    version's autograd.  fp32: errors within 1e-5 of the magnitudes summed
+    (conv of |x| with |w|, sum of |y|), the room fp32 rounding in another
+    order needs; bf16: y within one bf16 ulp on top of that, since the two
+    fp32 values can round to neighbours (the tensor cores sum in another
+    order than the fp32 reference)."""
     x, w = _conv_case(cuda, shape, co, dtype)
     before = _ext.launch_counts()["conv_bn_stats"]
     y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w)
@@ -117,6 +117,8 @@ def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
     rel = 1e-5 if dtype == torch.float32 else 1e-4
     assert ((s - rs).abs() <= rel * ry.float().abs().sum(dim=(0, 2, 3)) + 1e-30).all()
     assert ((q - rq).abs() <= rel * rq).all()
+    y2, s2, q2 = conv_bn_stats.conv3x3_bn_stats(x, w)
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(q, q2)
     xk, wk = x.detach().requires_grad_(), w.detach().requires_grad_()
     _moment_loss(*conv_bn_stats.conv3x3_bn_stats(xk, wk)).backward()
     xp, wp = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -125,6 +127,61 @@ def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
         scale = b.float().abs().max()
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(a.float(), b.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("shape,co", [((2, 5, 12, 13), 7), ((2, 20, 17, 35), 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
+    _check_conv(cuda, shape, co, dtype)
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((2, 64, 12, 20), 64),      # Ci one chunk, BN 64; H, W off the 8 x 16 tile
+    ((2, 224, 9, 23), 128),     # a ragged last chunk (224 = 3.5 x 64), BN 128
+    ((1, 800, 17, 18), 512),    # 12.5 chunks, four channel blocks
+    ((2, 64, 16, 16), 512),
+    ((2, 13, 10, 19), 70),      # Ci % 8 != 0: x and w zero-padded to 16; Co over one block
+    ((1, 224, 31, 7), 64)])
+def test_conv_bn_stats_tensor_core_kernel_matches_plain(cuda, shape, co):
+    _check_conv(cuda, shape, co, torch.bfloat16)
+
+
+def test_conv_bn_stats_tensor_core_layout_with_an_identity_weight(cuda):
+    """Only the centre tap, channel c to channel c: y must be x exactly,
+    which shows the TMA boxes, the swizzle and the accumulator layout
+    before any arithmetic."""
+    x = cl(torch.randn((2, 64, 12, 20), device=cuda).to(torch.bfloat16))
+    w = torch.zeros((64, 64, 3, 3), device=cuda)
+    w[torch.arange(64), torch.arange(64), 1, 1] = 1.0
+    y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert torch.equal(y, x)
+    torch.testing.assert_close(s, x.float().sum(dim=(0, 2, 3)), atol=1e-3, rtol=1e-5)
+
+
+def test_launch_path_uses_the_current_stream_and_raises_on_an_error(cuda):
+    """Under torch.cuda.stream(side) a kernel launches on the side stream:
+    it runs after the side stream's fill, which a busy wait holds back, so
+    on the default stream it would read the zeros.  A non-zero return code
+    still raises, and the counts still move."""
+    x = cl(torch.zeros((1, 8, 4, 4), device=cuda))
+    one, zero = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = _ext.launch_counts()["bn_relu"]
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        x.fill_(2.0)
+        y = bn_relu.fused_bn_relu(x, one, zero, zero, one - 1e-5)
+    side.synchronize()
+    assert _ext.launch_counts()["bn_relu"] == before + 1
+    torch.testing.assert_close(y, torch.full_like(y, 2.0))
+    s = torch.empty(4, device=cuda)
+    with pytest.raises(RuntimeError, match="vaeunet_conv3x3_stats_f32 failed with CUDA error"):
+        # a scratch of 3 rows for 1 tile: the C entry refuses it and launches nothing
+        _ext.call("conv_bn_stats", "vaeunet_conv3x3_stats_f32", cuda, x.data_ptr(),
+                  s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(),
+                  s.data_ptr(), 1, 4, 4, 8, 1, 3)
 
 
 @pytest.mark.parametrize("shape,out_hw", [((2, 8, 16, 16), (32, 32)), ((1, 5, 7, 9), (19, 4)),

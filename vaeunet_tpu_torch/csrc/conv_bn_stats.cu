@@ -10,32 +10,52 @@
 // across the grid: each block writes its partial moments to a row of a
 // [n_tiles, Co] scratch, and a second kernel (reduce_partials_kernel)
 // reduces the rows of each channel in a fixed order.  The moments are
-// therefore deterministic and need no atomics.
+// therefore deterministic and need no atomics.  Both kernels below cover an
+// output tile of kTH x kTW = 8 x 16 pixels of one image per block, so the
+// scratch has one row per such tile whichever kernel runs.
 //
-// conv3x3_stats_kernel: one block computes an output tile of TH x TW pixels
-// of one image by TCO output channels.  For each chunk of TCI input
-// channels it stages the (TH+2) x (TW+2) x TCI input patch, halo included
-// and zero outside the image (the padding), and the 3 x 3 x TCI x TCO weight
-// slice in shared memory, both as fp32, then every thread accumulates 4
-// pixels x 8 channels in registers with fp32 FMAs.  Pixels outside H x W and
-// channels beyond Co are masked on the way out, so the moments cover only
-// the valid output; that replaces the TPU wrapper's row-padding branch
-// (conv_bn_stats.py:100-107).  The moments are taken from the fp32
-// accumulators before y is rounded to its type, as the TPU kernel takes
-// them (conv_bn_stats.py:56-60).  Any Ci and Co work: a ragged chunk or
-// tile is zero-filled.
+// Pixels outside H x W and channels beyond Co are masked on the way out, so
+// the moments cover only the valid output; that replaces the TPU wrapper's
+// row-padding branch (conv_bn_stats.py:100-107).  The moments are taken from
+// the fp32 accumulators before y is rounded to its type, as the TPU kernel
+// takes them (conv_bn_stats.py:56-60).
 //
 // Bound on this card: operations, 2 * B*H*W*Ci*Co*9 over the tensor-core
-// peak of the input type (989 TFLOP/s bf16, and fp32 has no tensor-core
-// path here: 67 TFLOP/s), far above the bytes term at the step's shapes.
-// This first kernel runs on the fp32 SIMT pipes for both types, and its
-// inner loop does 12 shared-memory loads per 32 FMAs, so it is bound by
-// shared-memory bandwidth well below either peak; mma.sync or wgmma tiles
-// are the later work that would close the gap.
+// peak of the input type (989 TFLOP/s bf16; fp32 has no tensor-core path
+// here: 67 TFLOP/s), far above the bytes term at the training step's shapes.
 //
-// Weights come in HWIO order ([3][3][Ci][Co], Co fastest), which the
-// wrapper makes from PyTorch's OIHW.
+// bf16: conv3x3_stats_wgmma_kernel, an implicit GEMM on the tensor cores
+// with M = the tile's 128 pixels, N = BN output channels (64 when Co <= 64,
+// else 128) and K = 9 taps x Ci in steps of 64 channels.  Each K step is one
+// (channel chunk, kx) pair.  One producer warp loads, by TMA with 128-byte
+// swizzle, the step's input patch (a box of 64 channels x 16 columns x 10
+// rows of x, at column w0 + kx - 1 and row h0 - 1) and the three weight
+// slices (ky = 0, 1, 2) of that kx; the three ky windows of the patch are its
+// rows ky .. ky + 7, 2 KB apart, so one patch serves three taps.  TMA fills
+// everything outside x with zeros: that is the convolution's padding, the
+// negative coordinates included, and the ragged last channel chunk, so
+// there is no halo staging and no padded copy of x.  Two consumer
+// warpgroups (output rows 0-3 and 4-7) issue wgmma.m64nBNk16 from shared
+// memory, 12 per step, over a ring of stages guarded by mbarriers.  The
+// epilogue stores y as bf16 from the fp32 accumulators and reduces each
+// column's moments over the thread's rows, then a fixed __shfl_xor tree,
+// then the 8 warps in order through shared memory.
+//
+// fp32: conv3x3_stats_kernel, the SIMT kernel: for each chunk of 8 input
+// channels it stages the (TH+2) x (TW+2) input patch and the 3 x 3 x 8 x 64
+// weight slice in shared memory and every thread accumulates 4 pixels x 8
+// channels with fp32 FMAs.  fp32 is off the training path (bf16 there); it
+// serves the card-versus-CPU parity runs.
+//
+// Weights: fp32 in HWIO order ([3][3][Ci][Co], Co fastest); bf16 K-major
+// [9][Co][Ci] with tap = kx * 3 + ky and Ci a multiple of 8 (TMA needs
+// 16-byte strides), which the wrapper makes from PyTorch's OIHW, zero-padding
+// the channels of x and w where Ci is not a multiple of 8.
+//
+// The TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +64,9 @@ namespace {
 
 constexpr int kTH = 8;             // output rows per tile
 constexpr int kTW = 16;            // output columns per tile
+
+// ----- fp32: SIMT -----------------------------------------------------------
+
 constexpr int kTCI = 8;            // input channels per shared-memory chunk
 constexpr int kTCO = 64;           // output channels per tile
 constexpr int kThreads = 256;
@@ -59,18 +82,11 @@ constexpr int kReduceLanes = 32;               // rows reduced side by side per 
 static_assert(kPixGroups * kPix == kTH * kTW, "tile and thread map disagree");
 static_assert(2 * kPixGroups * kTCO <= kPatch + kWeights, "moment scratch must fit");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void put(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                     float* __restrict__ part_s, float* __restrict__ part_q, int H, int W,
-                     int Ci, int Co, int tiles_h, int tiles_w) {
+conv3x3_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ y, float* __restrict__ part_s,
+                     float* __restrict__ part_q, int H, int W, int Ci, int Co, int tiles_h,
+                     int tiles_w) {
   __shared__ float smem[kPatch + kWeights];
   float* xs = smem;             // [kPH][kPW][kTCI]
   float* ws = smem + kPatch;    // [9][kTCI][kTCO]
@@ -105,7 +121,7 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
       const int cc = ci0 + ci;
       float v = 0.0f;
       if (hh >= 0 && hh < H && ww >= 0 && ww < W && cc < Ci)
-        v = to_f(x[x_img + (static_cast<int64_t>(hh) * W + ww) * Ci + cc]);
+        v = x[x_img + (static_cast<int64_t>(hh) * W + ww) * Ci + cc];
       xs[i] = v;
     }
     for (int i = t; i < kWeights; i += kThreads) {
@@ -116,7 +132,7 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
       const int cc = ci0 + ci;
       const int oc = co0 + co;
       float v = 0.0f;
-      if (cc < Ci && oc < Co) v = to_f(w[(static_cast<int64_t>(k) * Ci + cc) * Co + oc]);
+      if (cc < Ci && oc < Co) v = w[(static_cast<int64_t>(k) * Ci + cc) * Co + oc];
       ws[i] = v;
     }
     __syncthreads();
@@ -143,7 +159,7 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
     __syncthreads();
   }
 
-  // write y; this thread's moments over its valid pixels, from fp32
+  // write y; this thread's moments over its valid pixels
   float ls[kCo];
   float lq[kCo];
 #pragma unroll
@@ -162,7 +178,7 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
         const int oc = co0 + cg + 8 * j;
         if (oc < Co) {
           const float v = acc[p][j];
-          put(y, base + oc, v);
+          y[base + oc] = v;
           ls[j] += v;
           lq[j] += v * v;
         }
@@ -186,6 +202,319 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
     if (co0 + co < Co) {
       float* part = t < kTCO ? part_s : part_q;
       part[static_cast<int64_t>(tile) * Co + co0 + co] = v;
+    }
+  }
+}
+
+// ----- bf16: TMA + wgmma ----------------------------------------------------
+
+constexpr int kTcThreads = 288;                  // warps 0-7: two consumer warpgroups; warp 8: producer
+constexpr int kChunk = 64;                       // input channels per K step: one 128-byte row
+constexpr int kRowBytes = kChunk * 2;
+constexpr int kPatchPixels = (kTH + 2) * kTW;    // 10 rows of 16 columns
+constexpr int kABytes = kPatchPixels * kRowBytes;   // 20480
+
+template <int BN>
+struct TcConfig {
+  // BN 64: two blocks of 2 stages on an SM, so one block's epilogue and
+  // pipeline fill overlap the other's steps (the Ci = 64 layers have only 3
+  // K steps).  BN 128: 145 registers a thread allow one block, of 3 stages.
+  static constexpr int kStages = BN == 64 ? 2 : 3;
+  static constexpr int kBlocksPerSm = BN == 64 ? 2 : 1;
+  static constexpr int kBBytes = 3 * BN * kRowBytes;       // ky = 0, 1, 2
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kRedFloats = 8 * BN;                // [warp][column], per moment
+  // 1 KB of slack to align the ring to the 1024-byte swizzle atom
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kRedFloats * 4 + 16 * kStages;
+  static_assert(kStageBytes % 1024 == 0, "stages must stay on 1024-byte swizzle atoms");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed; a wait of more
+// than ~10 s (a pipeline fault) traps, so the launch fails instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) asm volatile("trap;");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), LBO unused.  A K
+// step of 16 bf16 inside the row advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64(d, da, db);
+  } else {
+    wgmma_m64n128(d, da, db);
+  }
+}
+
+// Block = one 8 x 16 pixel tile of one image x BN output channels
+// (blockIdx.x = tile * n_blocks + channel block).  Accumulator layout of
+// wgmma m64nBN: warp q of a warpgroup holds its rows 16q .. 16q + 15, lane l
+// rows 16q + l/4 and 16q + l/4 + 8, and d[4j + 2i + e] is (row + 8i, column
+// 8j + 2(l%4) + e).  A warpgroup's 64 rows are 4 image rows of 16 pixels, so
+// warp q of warpgroup g owns tile row 4g + q and lane l its columns l/4 and
+// l/4 + 8.
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, TcConfig<BN>::kBlocksPerSm)
+conv3x3_stats_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap w_map,
+                           __nv_bfloat16* __restrict__ y, float* __restrict__ part_s,
+                           float* __restrict__ part_q, int H, int W, int Co, int n_chunks,
+                           int tiles_h, int tiles_w, int n_blocks) {
+  using Cfg = TcConfig<BN>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  float* red_s = reinterpret_cast<float*>(smem_raw + (ring - raw) + kStages * Cfg::kStageBytes);
+  float* red_q = red_s + Cfg::kRedFloats;
+  const uint32_t full0 = ring + kStages * Cfg::kStageBytes + 2 * Cfg::kRedFloats * 4;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int nb = blockIdx.x % n_blocks;
+  const int tile = blockIdx.x / n_blocks;
+  const int tw_i = tile % tiles_w;
+  const int th_i = (tile / tiles_w) % tiles_h;
+  const int b = tile / (tiles_w * tiles_h);
+  const int h0 = th_i * kTH;
+  const int w0 = tw_i * kTW;
+  const int co0 = nb * BN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int steps = 3 * n_chunks;     // (chunk, kx) pairs
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);      // the producer's arrive, plus the TMA bytes
+      mbar_init(empty0 + 8 * s, 2);     // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int k = 0; k < steps; ++k) {
+        const int s = k % kStages;
+        mbar_wait(empty0 + 8 * s, ((k / kStages) & 1) ^ 1);
+        const int chunk = k / 3;
+        const int kx = k % 3;
+        const uint32_t a = ring + s * Cfg::kStageBytes;
+        mbar_arrive_expect_tx(full0 + 8 * s, Cfg::kStageBytes);
+        tma_load_4d(a, &x_map, full0 + 8 * s, chunk * kChunk, w0 + kx - 1, h0 - 1, b);
+        tma_load_3d(a + kABytes, &w_map, full0 + 8 * s, chunk * kChunk, co0, 3 * kx);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int g = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int k = 0; k < steps; ++k) {
+    const int s = k % kStages;
+    mbar_wait(full0 + 8 * s, (k / kStages) & 1);
+    const uint32_t a = ring + s * Cfg::kStageBytes + g * 4 * kTW * kRowBytes;
+    const uint32_t bw = ring + s * Cfg::kStageBytes + kABytes;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk)
+        wgmma_step<BN>(acc, sw128_desc(a + ky * kTW * kRowBytes + kk * 32),
+                       sw128_desc(bw + ky * BN * kRowBytes + kk * 32));
+    wgmma_commit();
+    fence_regs(acc);
+    if (k > 0) {
+      // step k - 1 has finished reading its stage
+      wgmma_wait<1>();
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: y from the fp32 accumulators, then the moments of valid pixels
+  const int q = warp % 4;
+  const int hh = h0 + 4 * g + q;
+  const int c0 = w0 + lane / 4;
+  const bool v0 = hh < H && c0 < W;
+  const bool v1 = hh < H && c0 + 8 < W;
+  const int64_t pix0 = (static_cast<int64_t>(b) * H + hh) * W + c0;
+  __nv_bfloat16* y0 = y + pix0 * Co;
+  __nv_bfloat16* y1 = y + (pix0 + 8) * Co;
+  const bool pairs = Co % 2 == 0;
+  float ls[BN / 4];
+  float lq[BN / 4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int co = co0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a0 = v0 ? acc[4 * j + e] : 0.0f;
+      const float a1 = v1 ? acc[4 * j + 2 + e] : 0.0f;
+      ls[2 * j + e] = a0 + a1;
+      lq[2 * j + e] = a0 * a0 + a1 * a1;
+    }
+    if (pairs) {
+      if (co < Co) {
+        if (v0)
+          *reinterpret_cast<__nv_bfloat162*>(y0 + co) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        if (v1)
+          *reinterpret_cast<__nv_bfloat162*>(y1 + co) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (co + e < Co) {
+          if (v0) y0[co + e] = __float2bfloat16_rn(acc[4 * j + e]);
+          if (v1) y1[co + e] = __float2bfloat16_rn(acc[4 * j + 2 + e]);
+        }
+      }
+    }
+  }
+  // the 8 lanes that share a column, in a fixed butterfly
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) {
+#pragma unroll
+    for (int m = 4; m < 32; m <<= 1) {
+      ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], m);
+      lq[i] += __shfl_xor_sync(0xffffffffu, lq[i], m);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red_s[warp * BN + 8 * j + 2 * lane + e] = ls[2 * j + e];
+        red_q[warp * BN + 8 * j + 2 * lane + e] = lq[2 * j + e];
+      }
+  }
+  asm volatile("bar.sync 1, 256;" ::: "memory");     // the consumer warps only
+  // the 8 warps of each column, in order
+  const int t = threadIdx.x;
+  if (t < 2 * BN) {
+    const int col = t % BN;
+    const float* red = t < BN ? red_s : red_q;
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) v += red[w * BN + col];
+    if (co0 + col < Co) {
+      float* part = t < BN ? part_s : part_q;
+      part[static_cast<int64_t>(tile) * Co + co0 + col] = v;
     }
   }
 }
@@ -214,22 +543,75 @@ reduce_partials_kernel(const float* __restrict__ part_s, const float* __restrict
   }
 }
 
-// `tiles` is the row count of the scratch the wrapper allocated; it must
-// equal the grid's tile count, or nothing is launched.
-template <typename T>
-int launch(const T* x, const T* w, T* y, float* part_s, float* part_q, float* s, float* q, int B,
-           int H, int W, int Ci, int Co, int tiles, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles_h = (H + kTH - 1) / kTH;
-  const int tiles_w = (W + kTW - 1) / kTW;
-  if (tiles != B * tiles_h * tiles_w) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(tiles), static_cast<unsigned int>((Co + kTCO - 1) / kTCO));
-  conv3x3_stats_kernel<T><<<grid, kThreads, 0, st>>>(x, w, y, part_s, part_q, H, W, Ci, Co,
-                                                     tiles_h, tiles_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+int reduce_partials(float* part_s, float* part_q, float* s, float* q, int tiles, int Co,
+                    cudaStream_t st) {
   const dim3 rgrid(static_cast<unsigned int>((Co + 31) / 32), 2);
   reduce_partials_kernel<<<rgrid, kReduceLanes * 32, 0, st>>>(part_s, part_q, s, q, tiles, Co);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+bool encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+                 const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return enc != nullptr &&
+         enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS;
+}
+
+template <int BN>
+int launch_wgmma(const void* x, const void* w, void* y, float* part_s, float* part_q, int B,
+                 int H, int W, int Ci, int Co, int tiles, int tiles_h, int tiles_w,
+                 cudaStream_t st) {
+  using Cfg = TcConfig<BN>;
+  const uint64_t ci = static_cast<uint64_t>(Ci);
+  CUtensorMap x_map, w_map;
+  // x as NHWC [B][H][W][Ci], innermost first; box 64 ch x 16 w x 10 h x 1 image
+  const cuuint64_t x_dims[4] = {ci, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_strides[3] = {ci * 2, ci * 2 * W, ci * 2 * W * H};
+  const cuuint32_t x_box[4] = {kChunk, kTW, kTH + 2, 1};
+  // w as [9][Co][Ci]; box 64 ch x BN out channels x 3 taps
+  const cuuint64_t w_dims[3] = {ci, static_cast<cuuint64_t>(Co), 9};
+  const cuuint64_t w_strides[2] = {ci * 2, ci * 2 * Co};
+  const cuuint32_t w_box[3] = {kChunk, BN, 3};
+  if (!encode_bf16(&x_map, x, 4, x_dims, x_strides, x_box) ||
+      !encode_bf16(&w_map, w, 3, w_dims, w_strides, w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_stats_wgmma_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = (Co + BN - 1) / BN;
+  const unsigned int grid = static_cast<unsigned int>(tiles) * n_blocks;
+  conv3x3_stats_wgmma_kernel<BN><<<grid, kTcThreads, Cfg::kSmem, st>>>(
+      x_map, w_map, static_cast<__nv_bfloat16*>(y), part_s, part_q, H, W, Co,
+      (Ci + kChunk - 1) / kChunk, tiles_h, tiles_w, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,18 +619,42 @@ int launch(const T* x, const T* w, T* y, float* part_s, float* part_q, float* s,
 
 extern "C" {
 
+// `tiles` is the row count of the scratch the wrapper allocated; it must
+// equal the grid's tile count, or nothing is launched.
+
 int vaeunet_conv3x3_stats_f32(const float* x, const float* w, float* y, float* part_s,
                               float* part_q, float* s, float* q, int B, int H, int W, int Ci,
                               int Co, int tiles, void* stream) {
-  return launch(x, w, y, part_s, part_q, s, q, B, H, W, Ci, Co, tiles, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_h = (H + kTH - 1) / kTH;
+  const int tiles_w = (W + kTW - 1) / kTW;
+  if (tiles != B * tiles_h * tiles_w) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(tiles), static_cast<unsigned int>((Co + kTCO - 1) / kTCO));
+  conv3x3_stats_kernel<<<grid, kThreads, 0, st>>>(x, w, y, part_s, part_q, H, W, Ci, Co, tiles_h,
+                                                  tiles_w);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce_partials(part_s, part_q, s, q, tiles, Co, st);
 }
 
-int vaeunet_conv3x3_stats_bf16(const void* x, const void* w, void* y, float* part_s,
-                               float* part_q, float* s, float* q, int B, int H, int W, int Ci,
-                               int Co, int tiles, void* stream) {
-  return launch(static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-                static_cast<__nv_bfloat16*>(y), part_s, part_q, s, q, B, H, W, Ci, Co, tiles,
-                stream);
+// x: NHWC bf16 with Ci % 8 == 0 and a 16-byte-aligned base; w: [9][Co][Ci]
+// bf16, tap = kx * 3 + ky.
+int vaeunet_conv3x3_stats_bf16_wgmma(const void* x, const void* w, void* y, float* part_s,
+                                     float* part_q, float* s, float* q, int B, int H, int W,
+                                     int Ci, int Co, int tiles, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_h = (H + kTH - 1) / kTH;
+  const int tiles_w = (W + kTW - 1) / kTW;
+  if (tiles != B * tiles_h * tiles_w || Ci % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = Co <= 64
+                     ? launch_wgmma<64>(x, w, y, part_s, part_q, B, H, W, Ci, Co, tiles, tiles_h,
+                                        tiles_w, st)
+                     : launch_wgmma<128>(x, w, y, part_s, part_q, B, H, W, Ci, Co, tiles,
+                                         tiles_h, tiles_w, st);
+  if (rc != 0) return rc;
+  return reduce_partials(part_s, part_q, s, q, tiles, Co, st);
 }
 
 }  // extern "C"

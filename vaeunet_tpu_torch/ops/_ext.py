@@ -9,9 +9,13 @@ source and the flags, so a fresh checkout builds everything on its first
 kernel call and later processes reuse the libraries.
 
 Every C entry returns ``cudaGetLastError()``; :func:`call` raises when it is
-not 0.  The launch counters are plain integers, one per kernel: a wrapper
-adds one where it launches its kernel and nowhere else, so a run can show
-which kernels its path went through.
+not 0.  :func:`call` is on every launch's path, so it keeps its host work
+small: each C function is looked up once and kept with its argtypes, and
+when the tensor's device is the current device the stream handle is read
+directly, without entering a device context.  The launch counters are
+plain integers, one per kernel: a wrapper adds one where it launches its
+kernel and nowhere else, so a run can show which kernels its path went
+through.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -58,7 +62,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "conv_bn_stats": {
         "vaeunet_conv3x3_stats_f32": _CONV_ARGS,
-        "vaeunet_conv3x3_stats_bf16": _CONV_ARGS,
+        "vaeunet_conv3x3_stats_bf16_wgmma": _CONV_ARGS,
     },
 }
 
@@ -67,6 +71,8 @@ LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0
                             "resize_bwd": 0, "conv_bn_stats": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# C function -> the bound ctypes function (the names are unique across libraries)
+_FNS: Dict[str, Callable[..., int]] = {}
 
 
 def count_launch(kernel: str) -> None:
@@ -162,11 +168,26 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# the card's state, read through these two so a test can stand in for it
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
+
+
+def _raw_stream() -> int:
+    """cudaStream_t of the current device's current stream, as an int."""
+    return torch._C._cuda_getCurrentRawStream(-1)
+
+
 def call(name: str, fn: str, device: torch.device, *args) -> None:
     """Launch C entry `fn` of library `name` on `device`'s current stream
     (the stream is appended as the last argument); raise on a CUDA error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(library(name), fn)(*args, stream)
+    f = _FNS.get(fn)
+    if f is None:
+        f = _FNS[fn] = getattr(library(name), fn)
+    if device.index is None or device.index == _current_device():
+        rc = f(*args, _raw_stream())
+    else:
+        with torch.cuda.device(device):
+            rc = f(*args, _raw_stream())
     if rc != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {rc}")

@@ -10,6 +10,18 @@ per-channel fp32 sum ``s`` and sum of squares ``q`` of y over (N, H, W),
 taken from the fp32 accumulator before y is rounded.  A CUDA tensor goes to
 ``csrc/conv_bn_stats.cu``; a CPU tensor to :func:`conv3x3_bn_stats_plain`.
 
+On the card the bf16 forward is an implicit GEMM on the tensor cores (TMA
+loads in 128-byte swizzle, ``wgmma`` from shared memory, a ring of stages
+on mbarriers): M = an 8 x 16 pixel tile, N = 64 or 128 output channels,
+K = 9 taps x Ci.  Its bound is the operations, 2 B H W Ci Co 9 over the
+989 TFLOP/s bf16 peak.  It takes the weights K-major, [9, Co, Ci] with tap
+= kx * 3 + ky (:func:`weights_k_major`), and TMA needs 16-byte strides, so
+where Ci is not a multiple of 8 the wrapper zero-pads the channels of x and
+w to the next one (:func:`pad_channels`); zero channels add nothing to y or
+the moments.  fp32 takes the SIMT kernel with HWIO weights.  Both write one
+row of partial moments per 8 x 16 tile (:func:`scratch_rows`), reduced in a
+fixed order.
+
 The backward follows ``_bwd``: the moment cotangents fold into the output
 cotangent, g = gy + gs + 2 y gq in fp32 (plain torch; a missing cotangent
 counts as zero), cast to x's type, then the standard convolution VJPs,
@@ -32,6 +44,8 @@ from vaeunet_tpu_torch.ops import _ext
 _DTYPES = (torch.float32, torch.bfloat16)
 # output tile of csrc/conv_bn_stats.cu (kTH x kTW); one scratch row per tile
 TILE_H, TILE_W = 8, 16
+# channel multiple of the bf16 kernel's x and w: 16-byte TMA strides
+CI_ALIGN = 8
 
 
 def conv3x3_bn_stats_plain(x: torch.Tensor, weight: torch.Tensor
@@ -59,22 +73,55 @@ def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
                          "(cast it before the call)")
 
 
+def scratch_rows(b: int, h: int, w: int) -> int:
+    """Rows of the partial-moment scratch: one per TILE_H x TILE_W tile."""
+    return b * (-(-h // TILE_H)) * (-(-w // TILE_W))
+
+
+def pad_channels(x: torch.Tensor, ci: int) -> torch.Tensor:
+    """A channels_last copy of x with its channels zero-padded to `ci`."""
+    out = torch.empty((x.shape[0], ci, *x.shape[2:]), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    out[:, :x.shape[1]] = x
+    out[:, x.shape[1]:] = 0
+    return out
+
+
+def weights_k_major(weight: torch.Tensor, ci: int) -> torch.Tensor:
+    """OIHW [Co, Ci, 3, 3] -> contiguous [9, Co, ci], tap = kx * 3 + ky,
+    input channels zero-padded to `ci`."""
+    co, ci0 = weight.shape[:2]
+    w = weight.permute(3, 2, 0, 1)
+    if ci != ci0:
+        w = F.pad(w, (0, ci - ci0))
+    return w.reshape(9, co, ci).contiguous()
+
+
 def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
+    """The launch; few tensor ops, since each costs host time on every call."""
     b, ci, h, w = x.shape
     co = weight.shape[0]
-    y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device,
-                    memory_format=torch.channels_last)
-    s = torch.zeros(co, dtype=torch.float32, device=x.device)
-    q = torch.zeros(co, dtype=torch.float32, device=x.device)
+    dev = x.device
+    y = torch.empty((b, co, h, w), dtype=x.dtype, device=dev, memory_format=torch.channels_last)
     if y.numel() == 0:
-        return y, s, q
-    w_hwio = weight.permute(2, 3, 1, 0).contiguous()
-    tiles = b * (-(-h // TILE_H)) * (-(-w // TILE_W))
-    part = torch.empty((2, tiles, co), dtype=torch.float32, device=x.device)
-    fn = "vaeunet_conv3x3_stats_f32" if x.dtype == torch.float32 else "vaeunet_conv3x3_stats_bf16"
-    _ext.call("conv_bn_stats", fn, x.device, x.data_ptr(), w_hwio.data_ptr(), y.data_ptr(),
-              part[0].data_ptr(), part[1].data_ptr(), s.data_ptr(), q.data_ptr(),
-              b, h, w, ci, co, tiles)
+        return y, torch.zeros(co, device=dev), torch.zeros(co, device=dev)
+    if x.dtype == torch.bfloat16:
+        ci_k = -(-ci // CI_ALIGN) * CI_ALIGN
+        xk = x if ci_k == ci and x.data_ptr() % 16 == 0 else pad_channels(x, ci_k)
+        wk = weights_k_major(weight, ci_k)
+        fn = "vaeunet_conv3x3_stats_bf16_wgmma"
+    else:
+        ci_k, xk = ci, x
+        wk = weight.permute(2, 3, 1, 0).contiguous()
+        fn = "vaeunet_conv3x3_stats_f32"
+    tiles = scratch_rows(b, h, w)
+    # s, q and the two [tiles, Co] scratch halves in one allocation; the
+    # reduce kernel writes every element of s and q
+    buf = torch.empty(2 * (tiles + 1) * co, dtype=torch.float32, device=dev)
+    s, q = buf[:co], buf[co:2 * co]
+    p = buf.data_ptr() + 8 * co
+    _ext.call("conv_bn_stats", fn, dev, xk.data_ptr(), wk.data_ptr(), y.data_ptr(),
+              p, p + 4 * tiles * co, s.data_ptr(), q.data_ptr(), b, h, w, ci_k, co, tiles)
     _ext.count_launch("conv_bn_stats")
     return y, s, q
 

@@ -18,7 +18,7 @@ A CUDA device goes to the kernel; the CPU to the plain version.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 
@@ -28,6 +28,10 @@ _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _TWO_PI = 6.283185307179586
+# device index -> an empty fp32 tensor there: `new_empty` from it parses
+# fewer arguments than torch.empty(shape, dtype=, device=), which is a large
+# share of the host time of a small draw
+_EMPTY: Dict[int, torch.Tensor] = {}
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -81,20 +85,32 @@ def normal_plain(shape: Sequence[int], seed: int, device="cpu") -> torch.Tensor:
     return _box_muller(b1, b2).view(shape)
 
 
+def _empty_f32(shape: Sequence[int], device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else _ext._current_device()
+    proto = _EMPTY.get(index)
+    if proto is None:
+        with torch.inference_mode(False):
+            proto = _EMPTY[index] = torch.empty(0, dtype=torch.float32,
+                                                device=torch.device("cuda", index))
+    return proto.new_empty(shape)
+
+
 def normal(shape: Sequence[int], seed: int, device) -> torch.Tensor:
     """Standard-normal fp32 tensor of `shape` on `device` from `seed`.  It
     has no tensor input, so autograd has nothing to lose here: the draw is
     a constant of the graph."""
-    device = torch.device(device)
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
     seed = _check_seed(seed)
     if device.type == "cpu":
         return normal_plain(shape, seed, device)
     if device.type != "cuda":
         raise ValueError(f"normal: unsupported device {device}")
-    out = torch.empty(tuple(int(s) for s in shape), dtype=torch.float32, device=device)
-    if out.numel() == 0:
+    out = _empty_f32(shape, device)
+    n = out.numel()
+    if n == 0:
         return out
-    _ext.call("reparam", "vaeunet_normal", device, out.data_ptr(), out.numel(), seed)
+    _ext.call("reparam", "vaeunet_normal", device, out.data_ptr(), n, seed)
     _ext.count_launch("normal")
     return out
 

@@ -29,7 +29,8 @@ from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_tra
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
-    ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_kernel", "reduce_partials_kernel")),
+    ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_kernel", "conv3x3_stats_wgmma_kernel",
+                                            "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
     ("resize_bwd (this port's kernel)", ("resize_bilinear_bwd_kernel",)),
     ("resize", ("resize_bilinear_kernel",)),
