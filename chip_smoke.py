@@ -12,7 +12,10 @@ the card, in phases that each fail the run with a non-zero exit:
    at the shapes its path gives it, with timings (CUDA events) beside the
    bound and a PyTorch yardstick; the bf16 conv kernel at all 12 conv shapes
    of the training step, a repeat call bit for bit, and its time per step
-   (launches x ms) against ``F.conv2d`` plus the two sums;
+   (launches x ms) against ``F.conv2d`` plus the two sums; the resize
+   kernels, forward and backward, at the request's five shapes (fp32, batch
+   8) and the step's five (bf16 and fp32, batch 16), through the wrapper and
+   the launch alone, with their time per request and per step;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -207,48 +210,89 @@ def kernel_bn_relu(table: dict) -> None:
                 shape=f"{list(shape)} fp32") if main else {}))
 
 
+# (input NCHW, output H = W) of the model's five resizes (four decoder
+# upsamples and the logits'): the request's at batch 8, the step's at batch 16
 RESIZE_SHAPES = (((8, 512, 16, 16), 32), ((8, 512, 32, 32), 64), ((8, 256, 64, 64), 128),
                  ((8, 128, 128, 128), 256), ((8, 1, 256, 256), 512))
+RESIZE_BWD_SHAPES = (((16, 512, 16, 16), 32), ((16, 512, 32, 32), 64),
+                     ((16, 256, 64, 64), 128), ((16, 128, 128, 128), 256),
+                     ((16, 1, 256, 256), 512))
+# (shapes, type, what the sum of its launches x ms is called)
+RESIZE_SETS = ((RESIZE_SHAPES, torch.float32, "request (100 launches a shape)", 100),
+               (RESIZE_BWD_SHAPES, torch.bfloat16, "512^2 b16 bf16 step", 1),
+               (RESIZE_BWD_SHAPES, torch.float32, "512^2 b16 fp32 step", 1))
+
+
+def resize_launch_only(src, dst, ac: bool, backward: bool):
+    """The kernel's launch alone on tensors made beforehand: the device
+    time where the wrapper's allocation and host work would hide it."""
+    fn, args = resize_mm.launch_args(src, dst, ac, backward=backward)
+    return lambda: _ext.call("resize", fn, src.device, *args)
+
+
+def log_resize_sums(name: str, what: str, library: str, sums: dict) -> None:
+    log(f"{name} per {what}: kernel {sums['kernel']:.3f} ms (launch alone "
+        f"{sums['launch']:.3f} ms)  {library} {sums['library']:.3f} ms  "
+        f"bound {sums['bound']:.3f} ms")
 
 
 def kernel_resize(table: dict) -> None:
+    """fp32 within 1e-6 of the plain version and 1e-5 of F.interpolate, both
+    conventions; bf16 (blended in fp32, rounded once) within one bf16 ulp of
+    the plain version; a second call the same bits; where the tiled kernel
+    runs, the scalar kernel on the same input gives the same bits."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    for shape, out in RESIZE_SHAPES:
-        for ac in (True, False):
-            x = torch.randn(shape, device="cuda", generator=g).contiguous(
-                memory_format=torch.channels_last)
-            y = resize_mm.resize(x, (out, out), ac)
-            ref = resize_mm.resize_plain(x, (out, out), ac)
-            lib = F.interpolate(x, size=(out, out), mode="bilinear", align_corners=ac)
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            err_lib = (y - lib).abs().max().item()
-            check(err <= 1e-6, f"resize {shape}->{out} ac={ac}: err {err} > 1e-6")
-            check(err_lib <= 1e-5, f"resize {shape}->{out} ac={ac}: "
-                  f"err vs F.interpolate {err_lib} > 1e-5")
-            nbytes = (x.numel() + y.numel()) * 4
-            it = iters_for(nbytes)
-            k_ms = time_ms(lambda: resize_mm.resize(x, (out, out), ac), it)
-            p_ms = time_ms(lambda: resize_mm.resize_plain(x, (out, out), ac), it)
-            l_ms = time_ms(lambda: F.interpolate(x, size=(out, out), mode="bilinear",
-                                                 align_corners=ac), it)
-            bnd, by = bound_ms(nbytes, RESIZE_OPS * y.numel())
-            log(f"resize {list(shape)}->{out}^2 ac={ac}: err {err:.3g} (vs F.interpolate "
-                f"{err_lib:.3g})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-                f"F.interpolate {l_ms:.4f} ms  bound {bnd:.4f} ms")
-            main = shape == (8, 128, 128, 128) and ac
-            _record(table, "resize", err=err, **(dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
-                shape=f"{list(shape)}->{out}^2 fp32") if main else {}))
-    # bf16 with fp32 blending: against the plain version, within one bf16 ulp
-    x = torch.randn((8, 128, 128, 128), device="cuda", generator=g).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    y = resize_mm.resize(x, (256, 256), True).float()
-    ref = resize_mm.resize_plain(x, (256, 256), True).float()
-    torch.cuda.synchronize()
-    check(((y - ref).abs() <= ref.abs() * 2.0 ** -7).all().item(),
-          "resize bf16: differs from the plain version by more than 1 ulp")
-    log(f"resize bf16 [8,128,128,128]->256^2: max err {(y - ref).abs().max().item():.3g}")
+    for shapes, dtype, what, per in RESIZE_SETS:
+        sums = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
+        for shape, out in shapes:
+            for ac in (True, False):
+                x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
+                    memory_format=torch.channels_last)
+                y = resize_mm.resize(x, (out, out), ac)
+                ref = resize_mm.resize_plain(x, (out, out), ac)
+                torch.cuda.synchronize()
+                name = f"resize {list(shape)}->{out}^2 {str(dtype)[6:]} ac={ac}"
+                err = (y.float() - ref.float()).abs().max().item()
+                if dtype == torch.float32:
+                    lib = F.interpolate(x, size=(out, out), mode="bilinear", align_corners=ac)
+                    err_lib = (y - lib).abs().max().item()
+                    check(err <= 1e-6, f"{name}: err {err} > 1e-6")
+                    check(err_lib <= 1e-5, f"{name}: err vs F.interpolate {err_lib} > 1e-5")
+                    del lib
+                else:
+                    check(((y.float() - ref.float()).abs()
+                           <= ref.float().abs() * 2.0 ** -7).all().item(),
+                          f"{name}: differs from the plain version by more than 1 ulp")
+                check(torch.equal(y, resize_mm.resize(x, (out, out), ac)),
+                      f"{name}: a second call gave other bits")
+                other = torch.empty_like(y)
+                fn, args = resize_mm.launch_args(x, other, ac, scalar=True)
+                _ext.call("resize", fn, x.device, *args)
+                check(torch.equal(y, other), f"{name}: the tiled and scalar kernels differ")
+                del ref, other
+                _record(table, "resize", err=err)
+                if not ac:
+                    log(f"{name}: err {err:.3g}")
+                    continue
+                nbytes = (x.numel() + y.numel()) * x.element_size()
+                it = iters_for(nbytes)
+                k_ms = time_ms(lambda: resize_mm.resize(x, (out, out), ac), it)
+                a_ms = time_ms(resize_launch_only(x, y, ac, False), it)
+                p_ms = time_ms(lambda: resize_mm.resize_plain(x, (out, out), ac), it)
+                l_ms = time_ms(lambda: F.interpolate(x, size=(out, out), mode="bilinear",
+                                                     align_corners=ac), it)
+                bnd, by = bound_ms(nbytes, RESIZE_OPS * y.numel())
+                for k, v in (("kernel", k_ms), ("launch", a_ms), ("library", l_ms),
+                             ("bound", bnd)):
+                    sums[k] += per * v
+                log(f"{name}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone {a_ms:.4f} ms "
+                    f"({nbytes / a_ms / 1e9:.3f} TB/s)  plain {p_ms:.4f} ms  "
+                    f"F.interpolate {l_ms:.4f} ms  bound {bnd:.4f} ms")
+                if shape == (8, 128, 128, 128) and dtype == torch.float32:
+                    _record(table, "resize", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                            bound_ms=bnd, bound_by=by, shape=f"{list(shape)}->{out}^2 fp32")
+        log_resize_sums("resize", what, "F.interpolate", sums)
+        torch.cuda.empty_cache()
 
 
 def paired_ms(fns: dict, iters: int, rounds: int = 3) -> dict:
@@ -443,21 +487,17 @@ def kernel_conv_bn_stats(table: dict) -> None:
         _record(table, "conv_bn_stats", err=conv_case(g, *CONV_RAGGED, dtype)["err"])
 
 
-# (input NCHW, output H = W) of the 512^2 batch-16 step's five resizes
-RESIZE_BWD_SHAPES = (((16, 512, 16, 16), 32), ((16, 512, 32, 32), 64),
-                     ((16, 256, 64, 64), 128), ((16, 128, 128, 128), 256),
-                     ((16, 1, 256, 256), 512))
-
-
 def kernel_resize_bwd(table: dict) -> None:
     """gx = M^T g against the plain version (index_add_ with atomics on the
     card, so fp32 order differs: 1e-6 of the summed magnitudes M^T |g|; bf16
     is summed in fp32 and rounded once, so one bf16 ulp more) and, in fp32,
     against autograd's upsample_bilinear2d_backward (1e-5 of them; in bf16
-    that one accumulates in bf16 and is only timed)."""
+    that one accumulates in bf16 and is only timed).  A second call gives
+    the same bits, and so does the scalar kernel where the tiled one runs."""
     g = torch.Generator(device="cuda").manual_seed(8)
-    for shape, out in RESIZE_BWD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for shapes, dtype, what, per in RESIZE_SETS:
+        sums = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
+        for shape, out in shapes:
             gy = torch.randn((shape[0], shape[1], out, out), device="cuda", generator=g).to(
                 dtype).contiguous(memory_format=torch.channels_last)
             gx = resize_mm.resize_backward(gy, shape[2:], True)
@@ -466,28 +506,41 @@ def kernel_resize_bwd(table: dict) -> None:
                                                                True, None, None)
             mag = resize_mm.resize_backward_plain(gy.float().abs(), shape[2:], True)
             torch.cuda.synchronize()
+            name = f"resize_bwd {list(shape)}<-{out}^2 {str(dtype)[6:]}"
             ulp = 0.0 if dtype == torch.float32 else gx.float().abs() * 2.0 ** -7
             err = (gx.float() - ref.float()).abs()
-            check(bool((err <= 1e-6 * mag + ulp).all()),
-                  f"resize_bwd {shape}->{out} {dtype}: differs from the plain version")
+            check(bool((err <= 1e-6 * mag + ulp).all()), f"{name}: differs from the plain version")
             if dtype == torch.float32:
                 check(bool(((gx - lib).abs() <= 1e-5 * mag).all()),
-                      f"resize_bwd {shape}->{out}: differs from upsample_bilinear2d_backward")
+                      f"{name}: differs from upsample_bilinear2d_backward")
             err = err.max().item()
+            check(torch.equal(gx, resize_mm.resize_backward(gy, shape[2:], True)),
+                  f"{name}: a second call gave other bits")
+            other = torch.empty_like(gx)
+            fn, args = resize_mm.launch_args(gy, other, True, backward=True, scalar=True)
+            _ext.call("resize", fn, gy.device, *args)
+            check(torch.equal(gx, other), f"{name}: the tiled and scalar kernels differ")
+            del ref, lib, mag, other
             nbytes = (gy.numel() + gx.numel()) * gy.element_size()
             bnd, by = bound_ms(nbytes, RESIZE_OPS * gy.numel())
             it = iters_for(nbytes)
             k_ms = time_ms(lambda: resize_mm.resize_backward(gy, shape[2:], True), it)
+            a_ms = time_ms(resize_launch_only(gy, gx, True, True), it)
             p_ms = time_ms(lambda: resize_mm.resize_backward_plain(gy, shape[2:], True), it)
             l_ms = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
                 gy, [out, out], list(shape), True, None, None), it)
-            log(f"resize_bwd {list(shape)}<-{out}^2 {str(dtype)[6:]}: err {err:.3g}  "
-                f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  upsample_bilinear2d_backward "
-                f"{l_ms:.4f} ms  bound {bnd:.4f} ms")
+            for k, v in (("kernel", k_ms), ("launch", a_ms), ("library", l_ms), ("bound", bnd)):
+                sums[k] += per * v
+            log(f"{name}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone {a_ms:.4f} ms "
+                f"({nbytes / a_ms / 1e9:.3f} TB/s)  plain {p_ms:.4f} ms  "
+                f"upsample_bilinear2d_backward {l_ms:.4f} ms  bound {bnd:.4f} ms")
             main = shape == (16, 128, 128, 128) and dtype == torch.bfloat16
             _record(table, "resize_bwd", err=err, **(dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
                 shape=f"{list(shape)}<-{out}^2 bf16") if main else {}))
+        log_resize_sums("resize_bwd", what.replace("request", "request's shapes"),
+                        "upsample_bilinear2d_backward", sums)
+        torch.cuda.empty_cache()
 
 
 def phase_kernels() -> dict:

@@ -210,6 +210,96 @@ def test_resize_bwd_kernel_matches_plain_and_interpolate(cuda, shape, out_hw, ac
                                atol=0, rtol=0)
 
 
+# H, W, OH, OW off every tile; C on both routes (1, 3 scalar; 4 scalar in bf16; 72 a ragged
+# last chunk; 512 several chunks); the last case a downsample, whose lists have empty rows
+RAGGED_RESIZES = [((2, c, 13, 21), (29, 45)) for c in (1, 3, 4, 8, 72, 512)] + \
+                 [((1, 8, 37, 50), (17, 23))]
+
+
+def _other_route(src, dst_like, ac, backward):
+    """The scalar kernel's result on the same input."""
+    other = torch.empty_like(dst_like)
+    fn, args = resize_mm.launch_args(src, other, ac, backward=backward, scalar=True)
+    assert "_scalar_" in fn
+    _ext.call("resize", fn, src.device, *args)
+    return other
+
+
+@pytest.mark.parametrize("shape,out_hw", RAGGED_RESIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ac", [True, False])
+def test_resize_kernels_match_plain_at_ragged_tiles(cuda, shape, out_hw, dtype, ac):
+    """Forward and backward on whichever route the shape takes: fp32 within
+    1e-6 of the plain version (backward: of the magnitudes summed), bf16
+    one ulp more; a second call and the scalar kernel give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = cl(torch.randn(shape, device=cuda, generator=gen).to(dtype))
+    tiled = (shape[1] * x.element_size()) % 16 == 0
+    assert resize_mm.launch_args(x, x, ac)[0].count("_scalar_") == (0 if tiled else 1)
+    y = resize_mm.resize(x, out_hw, ac)
+    ref = resize_mm.resize_plain(x, out_hw, ac)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    ulp = ref.float().abs() * 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    assert ((y.float() - ref.float()).abs() <= 1e-6 + ulp).all()
+    assert torch.equal(y, resize_mm.resize(x, out_hw, ac))
+    assert torch.equal(y, _other_route(x, y, ac, False))
+
+    g = cl(torch.randn((shape[0], shape[1], *out_hw), device=cuda, generator=gen).to(dtype))
+    gx = resize_mm.resize_backward(g, shape[2:], ac)
+    ref = resize_mm.resize_backward_plain(g, shape[2:], ac)
+    mag = resize_mm.resize_backward_plain(g.float().abs(), shape[2:], ac)
+    torch.cuda.synchronize()
+    assert gx.dtype == dtype and gx.is_contiguous(memory_format=torch.channels_last)
+    ulp = gx.float().abs() * 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    assert ((gx.float() - ref.float()).abs() <= 1e-6 * mag + ulp + 1e-30).all()
+    assert torch.equal(gx, resize_mm.resize_backward(g, shape[2:], ac))
+    assert torch.equal(gx, _other_route(g, gx, ac, True))
+
+
+@pytest.mark.parametrize("tile,lanes", [((1, 1), 1), ((2, 32), 2), ((32, 2), 4), ((4, 4), 32)])
+def test_tiled_resize_kernels_at_other_tiles_and_lanes(cuda, tile, lanes):
+    """Tiles and lanes the rule does not choose give the rule's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = cl(torch.randn((2, 72, 13, 21), device=cuda, generator=gen))
+    y = resize_mm.resize(x, (29, 45), False)
+    gx = resize_mm.resize_backward(y, (13, 21), False)
+    for src, dst, backward in ((x, y, False), (y, gx, True)):
+        planner = resize_mm.plan_backward if backward else resize_mm.plan_forward
+        plan = planner((13, 21), (29, 45), 72, 4, False, 2, tile, lanes)
+        other = torch.full_like(dst, float("nan"))
+        fn, args = resize_mm.launch_args(src, other, False, backward=backward, plan=plan)
+        _ext.call("resize", fn, src.device, *args)
+        assert torch.equal(other, dst)
+
+
+def test_tiled_resize_kernels_launch_on_a_side_stream(cuda):
+    """As for bn_relu above: the side stream's fill is held back by a busy
+    wait, so a launch on the default stream would read the zeros."""
+    x = cl(torch.zeros((1, 8, 6, 6), device=cuda))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        x.fill_(2.0)
+        y = resize_mm.resize(x, (12, 12), True)
+        gx = resize_mm.resize_backward(y, (6, 6), True)
+    side.synchronize()
+    torch.testing.assert_close(y, torch.full_like(y, 2.0))
+    torch.testing.assert_close(gx, resize_mm.resize_backward_plain(torch.full_like(y, 2.0),
+                                                                   (6, 6), True))
+
+
+def test_a_refused_tiled_launch_raises(cuda):
+    """Shared memory over the card's limit: raising the kernel's limit
+    fails, the C entry returns that error and nothing is launched."""
+    x = cl(torch.zeros((1, 8, 6, 6), device=cuda))
+    y = cl(torch.zeros((1, 8, 12, 12), device=cuda))
+    fn, args = resize_mm.launch_args(x, y, True)
+    with pytest.raises(RuntimeError, match="vaeunet_resize_f32 failed with CUDA error"):
+        _ext.call("resize", fn, cuda, *args[:-1], 400_000)
+
+
 def test_resize_gradient_reaches_the_input_on_cuda(cuda):
     """The resize kernel's output carries a grad_fn: a training forward is
     not cut at the decoder's resizes, and the gradient equals the CPU's."""

@@ -41,7 +41,9 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 _F = ctypes.c_float
-_RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+_RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]              # the scalar route
+_RESIZE_TILED_ARGS = [_P] * 10 + [_I] * 10 + [_P]      # + spans; tile, lanes, shared memory
+_RESIZE_BWD_TILED_ARGS = [_P] * 10 + [_I] * 12 + [_P]  # + the most pairs of a tile
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 
 # library -> {C function: argtypes}; every function returns int (cudaError_t)
@@ -55,10 +57,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_bn_relu_bf16": [_P, _P, _P, _P, _I64, _I, _P],
     },
     "resize": {
-        "vaeunet_resize_f32": _RESIZE_ARGS,
-        "vaeunet_resize_bf16": _RESIZE_ARGS,
-        "vaeunet_resize_bwd_f32": _RESIZE_ARGS,
-        "vaeunet_resize_bwd_bf16": _RESIZE_ARGS,
+        "vaeunet_resize_f32": _RESIZE_TILED_ARGS,
+        "vaeunet_resize_bf16": _RESIZE_TILED_ARGS,
+        "vaeunet_resize_bwd_f32": _RESIZE_BWD_TILED_ARGS,
+        "vaeunet_resize_bwd_bf16": _RESIZE_BWD_TILED_ARGS,
+        "vaeunet_resize_scalar_f32": _RESIZE_ARGS,
+        "vaeunet_resize_scalar_bf16": _RESIZE_ARGS,
+        "vaeunet_resize_bwd_scalar_f32": _RESIZE_ARGS,
+        "vaeunet_resize_bwd_scalar_bf16": _RESIZE_ARGS,
     },
     "conv_bn_stats": {
         "vaeunet_conv3x3_stats_f32": _CONV_ARGS,

@@ -15,12 +15,30 @@ On CUDA the forward is a ``torch.autograd.Function`` whose backward is the
 second kernel, gx = M^T g, a gather over the transposed tables of
 :func:`transpose_table`.  On the CPU the plain forward is differentiable by
 itself, and :func:`resize_backward_plain` spells out the same gradient.
+
+Two routes on the card, chosen from the shape alone (:func:`plan_forward`,
+:func:`plan_backward`):
+
+* ``tiled``: a pixel's channels are a whole number of 16-byte vectors
+  (C a multiple of 4 in fp32, of 8 in bf16) and both tensors start on a
+  16-byte address.  A block owns a tile of the result and a chunk of up to
+  ``FORWARD_LANES`` channel vectors (backward: ``BACKWARD_CHANNELS``
+  channels); it stages the source span its tables name
+  (:func:`forward_spans`, :func:`backward_spans`) in shared memory, blends
+  one axis into an fp32 buffer there and the other axis from that buffer.
+  The tile starts at ``FORWARD_TILE`` / ``BACKWARD_TILE``, grows while the
+  tensor has fewer channels than a block takes (so that a block keeps as
+  many vectors to make), and is halved along the axis with the longer span
+  until the block's shared memory fits ``SMEM_BUDGET`` (a downsample's
+  spans are long).
+* ``scalar``: every other shape (the logits resize has C = 1) takes the
+  one-element-per-thread kernels, which read through the caches.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +47,17 @@ from torch.autograd.function import once_differentiable
 from vaeunet_tpu_torch.ops import _ext
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+VEC_BYTES = 16                 # one thread's load or store
+SMEM_LIMIT = 232_448           # shared memory a block can use on sm_90
+SMEM_BUDGET = 100 * 1024       # at least two blocks on an SM
+# The fastest of the tiles and lanes that ``utils/resize_tune.py`` times at
+# the model's 2x upsamples (the optimum is flat: the best five lie within 4 %).
+FORWARD_TILE = (16, 8)         # output rows x columns of a block
+FORWARD_LANES = 16             # 16-byte vectors of a pixel a block takes: 256 bytes
+BACKWARD_TILE = (4, 16)        # input rows x columns of a block
+BACKWARD_CHANNELS = 32         # channels a block takes: its fp32 buffer is as large in bf16
+MAX_BLOCKS = 2 ** 31 - 1       # gridDim.x
 
 
 def _source_coords(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
@@ -145,6 +174,153 @@ def resize_backward_plain(g: torch.Tensor, in_hw: Tuple[int, int],
     return gx.to(g.dtype).contiguous(memory_format=torch.channels_last)
 
 
+def forward_spans(i0: np.ndarray, i1: np.ndarray, tile: int) -> np.ndarray:
+    """For each run of `tile` outputs of one axis, the inputs its table
+    entries name: int32 [tiles, 2] of (first input, count).  The tables are
+    monotone, so the span first .. first + count - 1 holds no more than the
+    tile reads, apart from an edge the clamp doubles."""
+    n = -(-len(i0) // tile)
+    out = np.zeros((n, 2), np.int32)
+    for t in range(n):
+        lo = int(i0[t * tile:(t + 1) * tile].min())
+        hi = int(i1[t * tile:(t + 1) * tile].max())
+        out[t] = (lo, hi - lo + 1)
+    return out
+
+
+def backward_spans(ptr: np.ndarray, idx: np.ndarray, tile: int) -> Tuple[np.ndarray, int]:
+    """For each run of `tile` inputs of one axis, the outputs whose pairs
+    (``transpose_table``) name one of them: int32 [tiles, 2] of (first
+    output, count), (0, 0) where no output reads the run (a downsample);
+    and the most pairs a run has."""
+    in_size = len(ptr) - 1
+    n = -(-in_size // tile)
+    out = np.zeros((n, 2), np.int32)
+    nnz = 0
+    for t in range(n):
+        seg = idx[ptr[t * tile]:ptr[min((t + 1) * tile, in_size)]]
+        nnz = max(nnz, len(seg))
+        if len(seg):
+            out[t] = (seg.min(), seg.max() - seg.min() + 1)
+    return out, nnz
+
+
+class TilePlan(NamedTuple):
+    """How one resize (or its gradient) runs on the card."""
+    route: str          # "tiled" or "scalar"
+    tile_h: int = 0     # rows and columns of the result a block owns (powers of two)
+    tile_w: int = 0
+    lanes: int = 0      # 16-byte channel vectors of a pixel a block takes (a power of two)
+    chunks: int = 0     # blocks along the channels: ceil(vectors / lanes)
+    span_h: int = 0     # the longest source span of a tile, rows and columns
+    span_w: int = 0
+    nnz_h: int = 0      # backward: the most pairs a tile's rows / columns have
+    nnz_w: int = 0
+    smem_bytes: int = 0
+    blocks: int = 0
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def tiled_smem_bytes(backward: bool, tile_h: int, tile_w: int, lanes: int, span_h: int,
+                     span_w: int, nnz_h: int, nnz_w: int, elem_size: int) -> int:
+    """Shared memory of one block, as ``csrc/resize.cu`` lays it out: the
+    tile's tables, the staged span in the tensor's type, and the fp32
+    buffer of the first blend (W forward, H^T backward)."""
+    planes = VEC_BYTES // elem_size // 4          # fp32 vectors per staged vector
+    if backward:
+        tables = _round16(4 * (tile_h + 1 + tile_w + 1 + 2 * (nnz_h + nnz_w)))
+        inner = tile_h * span_w
+    else:
+        tables = _round16(12 * (tile_h + tile_w))
+        inner = span_h * tile_w
+    return tables + VEC_BYTES * lanes * (span_h * span_w + planes * inner)
+
+
+def _axis_spans(backward: bool, in_size: int, out_size: int, align_corners: bool, tile: int):
+    if backward:
+        ptr, idx, _ = transpose_table(in_size, out_size, align_corners)
+        return backward_spans(ptr, idx, tile)
+    i0, i1, _ = axis_table(in_size, out_size, align_corners)
+    return forward_spans(i0, i1, tile), 0
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(backward: bool, in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int,
+          elem_size: int, align_corners: bool, batch: int,
+          tile: Optional[Tuple[int, int]], lanes: Optional[int]) -> TilePlan:
+    if (channels * elem_size) % VEC_BYTES:
+        return TilePlan("scalar")
+    vecs = channels * elem_size // VEC_BYTES
+    most = BACKWARD_CHANNELS * elem_size // VEC_BYTES if backward else FORWARD_LANES
+    lanes = min(most, _pow2_at_least(vecs)) if lanes is None else lanes
+    own_hw = in_hw if backward else out_hw             # the result a block tiles
+    cap = [_pow2_at_least(own_hw[0]), _pow2_at_least(own_hw[1])]
+    fixed = tile is not None
+    t = list(tile if fixed else (BACKWARD_TILE if backward else FORWARD_TILE))
+    target = t[0] * t[1] * most
+    t = [min(t[0], cap[0]), min(t[1], cap[1])]
+    while not fixed and t[0] * t[1] * lanes < target and t != cap:
+        grow = 1 if (t[1] <= t[0] and t[1] < cap[1]) or t[0] == cap[0] else 0
+        t[grow] *= 2
+
+    def sized(t):
+        sh, nh = _axis_spans(backward, in_hw[0], out_hw[0], align_corners, t[0])
+        sw, nw = _axis_spans(backward, in_hw[1], out_hw[1], align_corners, t[1])
+        span = (int(sh[:, 1].max()), int(sw[:, 1].max()))
+        return span, (nh, nw), tiled_smem_bytes(backward, t[0], t[1], lanes, *span, nh, nw,
+                                                elem_size)
+
+    span, nnz, smem = sized(t)
+    while not fixed and smem > SMEM_BUDGET and t != [1, 1]:
+        shrink = 0 if (span[0] >= span[1] and t[0] > 1) or t[1] == 1 else 1
+        t[shrink] //= 2
+        span, nnz, smem = sized(t)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"resize: a {t[0]}x{t[1]} tile of {lanes} lanes needs {smem} bytes of "
+                         f"shared memory, over the card's {SMEM_LIMIT}")
+    chunks = -(-vecs // lanes)
+    blocks = chunks * -(-own_hw[0] // t[0]) * -(-own_hw[1] // t[1]) * batch
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"resize: {blocks} blocks exceed the grid's {MAX_BLOCKS}")
+    return TilePlan("tiled", t[0], t[1], lanes, chunks, span[0], span[1], nnz[0], nnz[1],
+                    smem, blocks)
+
+
+def plan_forward(in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int, elem_size: int,
+                 align_corners: bool, batch: int = 1, tile: Optional[Tuple[int, int]] = None,
+                 lanes: Optional[int] = None) -> TilePlan:
+    """The route and tile of ``resize`` for x [batch, channels, *in_hw] of
+    `elem_size` bytes an element.  `tile` (output rows, columns; powers of
+    two) and `lanes` fix what the rule would choose (for tuning)."""
+    return _plan(False, tuple(in_hw), tuple(out_hw), channels, elem_size, bool(align_corners),
+                 batch, tile, lanes)
+
+
+def plan_backward(in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int,
+                  elem_size: int, align_corners: bool, batch: int = 1,
+                  tile: Optional[Tuple[int, int]] = None,
+                  lanes: Optional[int] = None) -> TilePlan:
+    """The route and tile of ``resize_backward`` for g [batch, channels,
+    *out_hw]; the tile is of gx rows and columns."""
+    return _plan(True, tuple(in_hw), tuple(out_hw), channels, elem_size, bool(align_corners),
+                 batch, tile, lanes)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_spans(backward: bool, in_size: int, out_size: int, align_corners: bool, tile: int,
+                  device: str) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_axis_spans(backward, in_size, out_size, align_corners,
+                                            tile)[0]).to(device)
+
+
 def _check(x: torch.Tensor) -> None:
     if x.dim() != 4:
         raise ValueError(f"resize expects NCHW, got shape {tuple(x.shape)}")
@@ -158,17 +334,60 @@ def _suffix(t: torch.Tensor) -> str:
     return "f32" if t.dtype == torch.float32 else "bf16"
 
 
+@functools.lru_cache(maxsize=512)
+def _launch_setup(backward: bool, shape: Tuple[int, int, int, int], out_hw: Tuple[int, int],
+                  align_corners: bool, elem_size: int, device: str, scalar: bool,
+                  plan: Optional[TilePlan]):
+    """Everything of a launch that the shape decides: -> (C entry's name
+    without the type, the arguments after the two tensors, the device
+    tables those point into, kept alive with this entry).  `shape` is the
+    resize's input [B, C, H, W] (backward: gx's), `out_hw` its output's
+    (backward: g's)."""
+    b, c, h, w = shape
+    oh, ow = out_hw
+    if plan is None:
+        plan = _plan(backward, (h, w), (oh, ow), c, elem_size, align_corners, b, None, None)
+    if scalar:
+        plan = TilePlan("scalar")
+    table = _device_transpose_table if backward else _device_table
+    keep = [*table(h, oh, align_corners, device), *table(w, ow, align_corners, device)]
+    name = "vaeunet_resize_bwd" if backward else "vaeunet_resize"
+    tail: Tuple[int, ...] = ()
+    if plan.route == "tiled":
+        keep += [_device_spans(backward, h, oh, align_corners, plan.tile_h, device),
+                 _device_spans(backward, w, ow, align_corners, plan.tile_w, device)]
+        tail = (plan.tile_h.bit_length() - 1, plan.tile_w.bit_length() - 1,
+                plan.lanes.bit_length() - 1)
+        if backward:
+            tail += (plan.nnz_h, plan.nnz_w)
+        tail += (plan.smem_bytes,)
+    else:
+        name += "_scalar"
+    return name, (*(t.data_ptr() for t in keep), b, h, w, c, oh, ow, *tail), keep
+
+
+def launch_args(src: torch.Tensor, dst: torch.Tensor, align_corners: bool,
+                backward: bool = False, plan: Optional[TilePlan] = None, scalar: bool = False):
+    """(C entry, arguments) of one launch from `src` into `dst`, both
+    channels_last: x into y, or with `backward` g into gx.  The tiled route
+    also needs both on 16-byte addresses.  `plan` fixes a tiled plan and
+    `scalar` the scalar route (for tuning and for holding one against the
+    other)."""
+    shape, out_hw = (dst.shape, src.shape[2:]) if backward else (src.shape, dst.shape[2:])
+    src_ptr, dst_ptr = src.data_ptr(), dst.data_ptr()
+    name, args, _ = _launch_setup(backward, tuple(shape), tuple(out_hw), bool(align_corners),
+                                  src.element_size(), str(src.device),
+                                  scalar or (src_ptr | dst_ptr) % VEC_BYTES != 0, plan)
+    return f"{name}_{_suffix(src)}", (src_ptr, dst_ptr, *args)
+
+
 def _resize_cuda(x: torch.Tensor, oh: int, ow: int, align_corners: bool) -> torch.Tensor:
-    b, c, h, w = x.shape
-    y = torch.empty((b, c, oh, ow), dtype=x.dtype, device=x.device,
+    y = torch.empty((x.shape[0], x.shape[1], oh, ow), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    h0, h1, lh = _device_table(h, oh, align_corners, str(x.device))
-    w0, w1, lw = _device_table(w, ow, align_corners, str(x.device))
-    _ext.call("resize", f"vaeunet_resize_{_suffix(x)}", x.device, x.data_ptr(), y.data_ptr(),
-              h0.data_ptr(), h1.data_ptr(), lh.data_ptr(),
-              w0.data_ptr(), w1.data_ptr(), lw.data_ptr(), b, h, w, c, oh, ow)
+    fn, args = launch_args(x, y, align_corners)
+    _ext.call("resize", fn, x.device, *args)
     _ext.count_launch("resize")
     return y
 
@@ -186,17 +405,12 @@ def resize_backward(g: torch.Tensor, in_hw: Tuple[int, int],
         return resize_backward_plain(g, in_hw, align_corners)
     if g.device.type != "cuda":
         raise ValueError(f"resize_backward: unsupported device {g.device}")
-    b, c, oh, ow = g.shape
-    h, w = int(in_hw[0]), int(in_hw[1])
-    gx = torch.empty((b, c, h, w), dtype=g.dtype, device=g.device,
-                     memory_format=torch.channels_last)
+    gx = torch.empty((g.shape[0], g.shape[1], int(in_hw[0]), int(in_hw[1])), dtype=g.dtype,
+                     device=g.device, memory_format=torch.channels_last)
     if gx.numel() == 0:
         return gx
-    hp, hi, hw = _device_transpose_table(h, oh, align_corners, str(g.device))
-    wp, wi, ww = _device_transpose_table(w, ow, align_corners, str(g.device))
-    _ext.call("resize", f"vaeunet_resize_bwd_{_suffix(g)}", g.device, g.data_ptr(),
-              gx.data_ptr(), hp.data_ptr(), hi.data_ptr(), hw.data_ptr(),
-              wp.data_ptr(), wi.data_ptr(), ww.data_ptr(), b, h, w, c, oh, ow)
+    fn, args = launch_args(g, gx, align_corners, backward=True)
+    _ext.call("resize", fn, g.device, *args)
     _ext.count_launch("resize_bwd")
     return gx
 

@@ -32,8 +32,8 @@ FAMILIES = (
     ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_kernel", "conv3x3_stats_wgmma_kernel",
                                             "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
-    ("resize_bwd (this port's kernel)", ("resize_bilinear_bwd_kernel",)),
-    ("resize", ("resize_bilinear_kernel",)),
+    ("resize_bwd (this port's kernel)", ("resize_bwd_tiled_kernel", "resize_bilinear_bwd_kernel")),
+    ("resize", ("resize_tiled_kernel", "resize_bilinear_kernel")),
     ("normal/reparam", ("normal_kernel", "reparam_kernel")),
     ("optimizer (foreach AdamW, clip)", ("multi_tensor_apply", "adam")),
     ("batch_norm (gate, residual)", ("batch_norm", "bn_fw_inf")),

@@ -1,0 +1,125 @@
+"""Time the tiled resize kernels over tiles and lanes on the card.
+
+    python -m vaeunet_tpu_torch.utils.resize_tune [--quick]
+
+New in the port: the numbers behind the tile rule of
+``ops/pallas/resize_mm.py`` (``FORWARD_TILE``, ``FORWARD_LANES``,
+``BACKWARD_TILE``, ``BACKWARD_CHANNELS``).  For the 2x upsamples of the serving request (fp32, batch 8)
+and of the training step (bf16 and fp32, batch 16), forward and backward, it
+launches the tiled kernel with every candidate (tile rows x columns, lanes)
+that fits the card's shared memory, holds each result bit for bit against
+the rule's own plan, and prints the launch's device time (CUDA events, the
+launch alone on prepared tensors) beside the one-element-per-thread kernel's
+and the bytes bound.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import subprocess
+
+import torch
+
+from vaeunet_tpu_torch.ops import _ext
+from vaeunet_tpu_torch.ops.pallas import resize_mm
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+# (channels, input H = W) of the decoder's four 2x upsamples
+LAYERS = ((512, 16), (512, 32), (256, 64), (128, 128))
+FORWARD_TILES = ((8, 16), (16, 8), (16, 16), (8, 8), (16, 4), (32, 4), (32, 8), (8, 32),
+                 (16, 32), (32, 16), (32, 32))
+BACKWARD_TILES = ((4, 8), (8, 4), (8, 8), (2, 8), (2, 16), (2, 32), (4, 4), (4, 16), (4, 32),
+                  (8, 16), (16, 8), (16, 16))
+LANES = (2, 4, 8, 16, 32)
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def launcher(src, dst, backward: bool, plan=None, scalar: bool = False):
+    fn, args = resize_mm.launch_args(src, dst, True, backward=backward, plan=plan, scalar=scalar)
+    return lambda: _ext.call("resize", fn, src.device, *args)
+
+
+def sweep(batch: int, dtype: torch.dtype, channels: int, size: int, backward: bool,
+          quick: bool) -> None:
+    g = torch.Generator(device="cuda").manual_seed(size)
+    small = (batch, channels, size, size)
+    large = (batch, channels, 2 * size, 2 * size)
+    src = torch.randn(large if backward else small, device="cuda", generator=g).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    dst = torch.empty(small if backward else large, device="cuda", dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    nbytes = (src.numel() + dst.numel()) * src.element_size()
+    iters = int(min(200, max(20, 2e9 / nbytes)))
+    planner = resize_mm.plan_backward if backward else resize_mm.plan_forward
+    hw = ((size, size), (2 * size, 2 * size))
+    rule = planner(*hw, channels, src.element_size(), True, batch)
+    launcher(src, dst, backward)()
+    want = dst.clone()
+    rows = [("scalar", time_ms(launcher(src, dst, backward, scalar=True), iters), 0)]
+    check(torch.equal(dst, want), "the scalar kernel differs from the rule's plan")
+    tiles = BACKWARD_TILES if backward else FORWARD_TILES
+    if quick:
+        tiles = ((rule.tile_h, rule.tile_w),)
+    for tile, lanes in itertools.product(tiles, LANES):
+        if lanes * 16 > channels * src.element_size():
+            continue
+        try:
+            plan = planner(*hw, channels, src.element_size(), True, batch, tile, lanes)
+        except ValueError:      # over the card's shared memory
+            continue
+        dst.zero_()
+        fn = launcher(src, dst, backward, plan)
+        fn()
+        check(torch.equal(dst, want), f"tile {tile} lanes {lanes} differs from the rule's plan")
+        mark = " <- rule" if plan[:4] == rule[:4] else ""
+        rows.append((f"{tile[0]}x{tile[1]} l{lanes}{mark}", time_ms(fn, iters), plan.smem_bytes))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    what = "bwd" if backward else "fwd"
+    print(f"{what} {str(dtype)[6:]} {list(small)}{'<-' if backward else '->'}{2 * size}^2: "
+          f"{nbytes / 1e6:.1f} MB, bound {bound:.4f} ms")
+    best = min(r[1] for r in rows)
+    for name, ms, smem in rows:
+        print(f"    {name:22s} {ms:8.4f} ms  {nbytes / ms / 1e9:6.3f} TB/s  smem {smem:6d}"
+              f"{'  *' if ms == best else ''}")
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--quick", action="store_true",
+                        help="only the rule's tile at each shape (every lane count)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("resize_tune: no CUDA device is available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"device: {smi}")
+    for line in _ext.build(["resize"])["resize"]["ptxas"]:
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  {line.strip()}")
+    for backward in (False, True):
+        for batch, dtype in ((8, torch.float32), (16, torch.bfloat16), (16, torch.float32)):
+            for channels, size in LAYERS:
+                sweep(batch, dtype, channels, size, backward, args.quick)
+
+
+if __name__ == "__main__":
+    main()
