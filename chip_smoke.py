@@ -10,12 +10,14 @@ the card, in phases that each fail the run with a non-zero exit:
 2. build: every ``vaeunet_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the shapes its path gives it, with timings (CUDA events) beside the
-   bound and a PyTorch yardstick; the bf16 conv kernel at all 12 conv shapes
-   of the training step, a repeat call bit for bit, and its time per step
-   (launches x ms) against ``F.conv2d`` plus the two sums; the resize
-   kernels, forward and backward, at the request's five shapes (fp32, batch
-   8) and the step's five (bf16 and fp32, batch 16), through the wrapper and
-   the launch alone, with their time per request and per step;
+   bound and a PyTorch yardstick; the bf16 and the fp32 conv kernel at all
+   12 conv shapes of the training step, a repeat call bit for bit, and
+   their time per step (launches x ms) against ``F.conv2d`` plus the two
+   sums; the resize kernels, forward and backward, at the request's five
+   shapes (fp32, batch 8) and the step's five (bf16 and fp32, batch 16),
+   through the wrapper and the launch alone, with their time per request
+   and per step; at the one-channel logits resize the row kernel, the
+   scalar kernel and the plain version bit for bit;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -28,7 +30,9 @@ the card, in phases that each fail the run with a non-zero exit:
    parameter and leave it finite, then 3 warm-up and 10 timed steps, whose
    kernel launch counts are held against the counts the code implies, and
    one eval step on 16 images with a ``valid`` row mask;
-7. one fp32 train step (TF32 off) of the full-width resnet34 model at
+7. the same step in fp32 (``amp=False``, TF32 off) at full width: 2 warm
+   and 5 timed steps with their launch counts, p50, img/s and peak memory;
+8. one fp32 train step (TF32 off) of the full-width resnet34 model at
    128^2, batch 2, accumulation 2, on the card and on the CPU from the same
    weights, batch and noise: loss atol 1e-5, running statistics atol 1e-4
    + rtol 1e-3, parameters atol 2 lr (+ 1e-6 for the fp32 rounding of
@@ -236,11 +240,19 @@ def log_resize_sums(name: str, what: str, library: str, sums: dict) -> None:
         f"bound {sums['bound']:.3f} ms")
 
 
+def spread_ms(fn, iters: int, rounds: int = 3) -> tuple:
+    """(least, most) of `rounds` time_ms of fn: a call whose time is the
+    host's launch work varies between rounds."""
+    times = [time_ms(fn, iters) for _ in range(rounds)]
+    return min(times), max(times)
+
+
 def kernel_resize(table: dict) -> None:
     """fp32 within 1e-6 of the plain version and 1e-5 of F.interpolate, both
     conventions; bf16 (blended in fp32, rounded once) within one bf16 ulp of
-    the plain version; a second call the same bits; where the tiled kernel
-    runs, the scalar kernel on the same input gives the same bits."""
+    the plain version; a second call the same bits; where the tiled or the
+    row kernel runs, the scalar kernel on the same input gives the same
+    bits; at C = 1 (the row kernel) the plain version's bits as well."""
     g = torch.Generator(device="cuda").manual_seed(2)
     for shapes, dtype, what, per in RESIZE_SETS:
         sums = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
@@ -268,26 +280,57 @@ def kernel_resize(table: dict) -> None:
                 other = torch.empty_like(y)
                 fn, args = resize_mm.launch_args(x, other, ac, scalar=True)
                 _ext.call("resize", fn, x.device, *args)
-                check(torch.equal(y, other), f"{name}: the tiled and scalar kernels differ")
+                check(torch.equal(y, other), f"{name}: the chosen and the scalar kernels differ")
+                one_channel = shape[1] == 1
+                if one_channel:
+                    check("_row_" in resize_mm.launch_args(x, y, ac)[0],
+                          f"{name}: did not take the row kernel")
+                    check(torch.equal(y, ref), f"{name}: the row kernel and the plain version differ")
                 del ref, other
-                _record(table, "resize", err=err)
+                _record(table, "resize_c1" if one_channel else "resize", err=err)
                 if not ac:
                     log(f"{name}: err {err:.3g}")
                     continue
                 nbytes = (x.numel() + y.numel()) * x.element_size()
                 it = iters_for(nbytes)
+
+                def library():
+                    return F.interpolate(x, size=(out, out), mode="bilinear", align_corners=ac)
                 k_ms = time_ms(lambda: resize_mm.resize(x, (out, out), ac), it)
-                a_ms = time_ms(resize_launch_only(x, y, ac, False), it)
                 p_ms = time_ms(lambda: resize_mm.resize_plain(x, (out, out), ac), it)
-                l_ms = time_ms(lambda: F.interpolate(x, size=(out, out), mode="bilinear",
-                                                     align_corners=ac), it)
+                extra = ""
+                if one_channel:
+                    # microseconds each: the row kernel, the scalar kernel it replaced
+                    # and the library call in turns, the least of three rounds
+                    fn, args = resize_mm.launch_args(x, y, ac, scalar=True)
+                    t = paired_ms({"alone": resize_launch_only(x, y, ac, False),
+                                   "scalar": lambda: _ext.call("resize", fn, x.device, *args),
+                                   "library": library}, 1000)
+                    a_ms, l_ms = t["alone"], t["library"]
+                    extra = (f"  scalar kernel alone {t['scalar']:.4f} ms  (row kernel "
+                             f"{'no slower than' if a_ms <= l_ms else 'SLOWER than'} "
+                             f"F.interpolate)")
+                else:
+                    a_ms = time_ms(resize_launch_only(x, y, ac, False), it)
+                    l_ms = time_ms(library, it)
+                if one_channel or shape == (8, 512, 16, 16):
+                    # host-bound through the wrapper: the spread between rounds
+                    lo, hi = spread_ms(lambda: resize_mm.resize(x, (out, out), ac), 1000)
+                    extra += f"  wrapper over 3 rounds {lo:.4f}-{hi:.4f} ms"
                 bnd, by = bound_ms(nbytes, RESIZE_OPS * y.numel())
                 for k, v in (("kernel", k_ms), ("launch", a_ms), ("library", l_ms),
                              ("bound", bnd)):
                     sums[k] += per * v
                 log(f"{name}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone {a_ms:.4f} ms "
                     f"({nbytes / a_ms / 1e9:.3f} TB/s)  plain {p_ms:.4f} ms  "
-                    f"F.interpolate {l_ms:.4f} ms  bound {bnd:.4f} ms")
+                    f"F.interpolate {l_ms:.4f} ms  bound {bnd:.4f} ms{extra}")
+                if shape == (8, 1, 256, 256) and dtype == torch.float32:
+                    # through the wrapper the call is the host's Python work (as is
+                    # F.interpolate's): the kernel's own time is the launch alone, timed
+                    # in turns with the library call
+                    _record(table, "resize_c1", ms=a_ms, wrapper_ms=k_ms, plain_ms=p_ms,
+                            library_ms=l_ms, bound_ms=bnd, bound_by=by,
+                            shape=f"{list(shape)}->{out}^2 fp32")
                 if shape == (8, 128, 128, 128) and dtype == torch.float32:
                     _record(table, "resize", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                             bound_ms=bnd, bound_by=by, shape=f"{list(shape)}->{out}^2 fp32")
@@ -325,10 +368,15 @@ def kernel_noise(table: dict) -> None:
         t = paired_ms({"kernel": lambda: reparam_mod.normal(shape, 11, dev),
                        "randn": lambda: torch.randn(shape, device=dev)}, 1000)
         k_ms, l_ms = t["kernel"], t["randn"]
+        # the launch alone into a tensor made beforehand: what is left of the
+        # wrapper's time is its allocation and checks
+        a_ms = time_ms(lambda: _ext.call("reparam", "vaeunet_normal", dev, z.data_ptr(), n, 11),
+                       1000)
         p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"), 200)
         bnd, by = bound_ms(4 * n, PHILOX_BOX_MULLER_OPS * n)
-        log(f"normal {list(shape)}: err {err:.3g}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"torch.randn {l_ms:.4f} ms  bound {bnd:.6f} ms  "
+        log(f"normal {list(shape)}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone "
+            f"{a_ms:.4f} ms  plain {p_ms:.4f} ms  torch.randn {l_ms:.4f} ms  "
+            f"bound {bnd:.6f} ms  "
             f"(kernel {'no slower than' if k_ms <= l_ms else 'SLOWER than'} torch.randn)")
         main = shape == (1, 32)
         _record(table, "normal", err=err, **(dict(
@@ -366,9 +414,12 @@ def kernel_reparam(table: dict) -> None:
     k_ms = time_ms(lambda: reparam_mod.reparameterize(mu, logvar, 5, TEMPERATURE), 200)
     p_ms = time_ms(lambda: reparam_mod.reparameterize_plain(mu, logvar, 5, TEMPERATURE), 200)
     n = mu.numel()
+    z = torch.empty_like(mu)
+    a_ms = time_ms(lambda: _ext.call("reparam", "vaeunet_reparam", mu.device, mu.data_ptr(),
+                                     logvar.data_ptr(), TEMPERATURE, z.data_ptr(), n, 5), 1000)
     bnd, by = bound_ms(12 * n, (PHILOX_BOX_MULLER_OPS + 5) * n)
-    log(f"reparam [10, 32]: err {err:.3g}  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-        f"bound {bnd:.6f} ms")
+    log(f"reparam [10, 32]: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone {a_ms:.4f} ms  "
+        f"plain {p_ms:.4f} ms  bound {bnd:.6f} ms")
     _record(table, "reparam", err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
             bound_ms=bnd, bound_by=by, shape="[10, 32]")
 
@@ -382,27 +433,37 @@ CONV_STEP = (((16, 64, 128, 128), 64, 6), ((16, 128, 64, 64), 128, 7),
              ((16, 672, 64, 64), 256, 1), ((16, 256, 64, 64), 256, 1),
              ((16, 352, 128, 128), 128, 1), ((16, 128, 128, 128), 128, 1),
              ((16, 224, 256, 256), 64, 1), ((16, 64, 256, 256), 64, 1))
-# fp32 (the SIMT kernel, off the training path) at three of them, and a
-# ragged case in both types: Ci % 8 != 0 (padded), Co, H, W off every tile
-CONV_FP32 = (((16, 64, 128, 128), 64), ((16, 224, 256, 256), 64), ((16, 800, 32, 32), 512))
+# both types at all of them, and at a ragged case: Ci off a vector, Co, H, W
+# off every tile
 CONV_RAGGED = ((2, 5, 12, 13), 7)
-CONV_MAIN = ((16, 224, 256, 256), 64, torch.bfloat16)
+CONV_MAIN = ((16, 224, 256, 256), 64)
 
 
 def conv_launch_only(x, w):
-    """The bf16 kernel's launch alone, its operands made beforehand: the
-    device time where the wrapper's host work would hide it."""
+    """The kernel's launch alone (bf16: Ci a multiple of 8), its operands
+    made beforehand: the device time where the wrapper's host work would
+    hide it."""
     b, ci, h, wd = x.shape
     co = w.shape[0]
-    wk = conv_mod.weights_k_major(w, ci)
+    if x.dtype == torch.bfloat16:
+        wk, dims = conv_mod.weights_k_major(w, ci), (ci, co)
+        fn = "vaeunet_conv3x3_stats_bf16_wgmma"
+    else:
+        pads = (-(-ci // conv_mod.F32_CI_ALIGN) * conv_mod.F32_CI_ALIGN,
+                -(-co // conv_mod.F32_CO_ALIGN) * conv_mod.F32_CO_ALIGN)
+        wk, dims = conv_mod.weights_tap_major(w, *pads), (ci, co, *pads)
+        fn = "vaeunet_conv3x3_stats_f32"
     y = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     tiles = conv_mod.scratch_rows(b, h, wd)
     buf = torch.empty(2 * (tiles + 1) * co, device=x.device)
     p = buf.data_ptr()
     args = (x.data_ptr(), wk.data_ptr(), y.data_ptr(), p + 8 * co, p + 8 * co + 4 * tiles * co,
-            p, p + 4 * co, b, h, wd, ci, co, tiles)
-    return lambda: _ext.call("conv_bn_stats", "vaeunet_conv3x3_stats_bf16_wgmma", x.device, *args)
+            p, p + 4 * co, b, h, wd, *dims, tiles)
+
+    def launch(keep=(wk, y, buf)):      # the operands live as long as the launcher
+        _ext.call("conv_bn_stats", fn, x.device, *args)
+    return launch
 
 
 def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
@@ -412,8 +473,8 @@ def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
     cores sum in another order than cuDNN's fp32 reference).  s within 1e-5
     (fp32) or 1e-4 (bf16) of sum |y|, q relative 1e-5 / 1e-4: both sides sum
     the same fp32 values in another order.  A second call must give the
-    same bits.  `launch_alone` also times the bf16 kernel's launch without
-    the wrapper (Ci a multiple of 8)."""
+    same bits.  `launch_alone` also times the kernel's launch without the
+    wrapper (bf16: Ci a multiple of 8)."""
     x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
         memory_format=torch.channels_last)
     w = (torch.randn((co, shape[1], 3, 3), device="cuda", generator=g)
@@ -465,26 +526,28 @@ def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
 
 def kernel_conv_bn_stats(table: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(7)
-    per_step = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
-    for shape, co, n in CONV_STEP:
-        r = conv_case(g, shape, co, torch.bfloat16, launch_alone=True)
-        for k, key in (("kernel", "ms"), ("launch", "launch_ms"), ("library", "library_ms"),
-                       ("bound", "bound_ms")):
-            per_step[k] += n * r[key]
-        main = (shape, co, torch.bfloat16) == CONV_MAIN
-        _record(table, "conv_bn_stats", err=r["err"], **(dict(
-            ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            shape=f"{list(shape)}->{co} bf16") if main else {}))
-        torch.cuda.empty_cache()
-    log(f"conv_bn_stats per 512^2 b16 step (sum of launches x ms over the 37 launches): "
-        f"kernel {per_step['kernel']:.3f} ms (launch alone {per_step['launch']:.3f} ms)  "
-        f"F.conv2d+sums {per_step['library']:.3f} ms  bound {per_step['bound']:.3f} ms")
-    for shape, co in CONV_FP32:
-        _record(table, "conv_bn_stats", err=conv_case(g, shape, co, torch.float32)["err"])
-        torch.cuda.empty_cache()
-    for dtype in (torch.float32, torch.bfloat16):
-        _record(table, "conv_bn_stats", err=conv_case(g, *CONV_RAGGED, dtype)["err"])
+    for dtype, entry in ((torch.bfloat16, "conv_bn_stats"), (torch.float32, "conv_bn_stats_fp32")):
+        per_step = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
+        lost = []
+        for shape, co, n in CONV_STEP:
+            r = conv_case(g, shape, co, dtype, launch_alone=True)
+            for k, key in (("kernel", "ms"), ("launch", "launch_ms"), ("library", "library_ms"),
+                           ("bound", "bound_ms")):
+                per_step[k] += n * r[key]
+            if r["launch_ms"] > r["library_ms"]:
+                lost.append(f"{list(shape)}->{co}")
+            _record(table, entry, err=r["err"], **(dict(
+                ms=r["ms"], launch_ms=r["launch_ms"], plain_ms=r["plain_ms"],
+                library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                shape=f"{list(shape)}->{co} {'bf16' if dtype == torch.bfloat16 else 'fp32'}")
+                if (shape, co) == CONV_MAIN else {}))
+            torch.cuda.empty_cache()
+        log(f"{entry} per 512^2 b16 {str(dtype)[6:]} step (sum of launches x ms over the 37 "
+            f"launches): kernel {per_step['kernel']:.3f} ms (launch alone "
+            f"{per_step['launch']:.3f} ms)  F.conv2d+sums {per_step['library']:.3f} ms  "
+            f"bound {per_step['bound']:.3f} ms  launch alone slower than F.conv2d+sums at: "
+            f"{lost or 'no shape'}")
+        _record(table, entry, err=conv_case(g, *CONV_RAGGED, dtype)["err"])
 
 
 def kernel_resize_bwd(table: dict) -> None:
@@ -571,12 +634,15 @@ def expected_launches() -> dict:
     n_tiles = len(compute_tile_grid(*IMAGE_HW, PATCH, OVERLAP))
     batches = -(-n_tiles // TILE_BATCH)
     enc, dec = 17, 13          # resnet34 BN->ReLU pairs; z_initial + 4 x (z_proj, bn1, bn2)
+    # of a decode's 5 resizes, the logits' (one channel) takes the row kernel
     per_request = {"bn_relu": enc * (1 + batches) + dec * batches * N_SAMPLES,
-                   "resize": 5 * batches * N_SAMPLES, "reparam": 1, "normal": 0,
-                   "resize_bwd": 0, "conv_bn_stats": 0}
+                   "resize": 5 * batches * N_SAMPLES, "resize_row": batches * N_SAMPLES,
+                   "reparam": 1, "normal": 0, "resize_bwd": 0, "conv_bn_stats": 0,
+                   "conv_bn_stats_fp32": 0}
     expected = {k: v * N_REQUESTS for k, v in per_request.items()}
     expected["bn_relu"] += enc + dec        # one predict_image at 512^2
     expected["resize"] += 5
+    expected["resize_row"] += 1
     expected["normal"] += 1
     return expected
 
@@ -621,7 +687,7 @@ def phase_slice(model) -> dict:
         f"all {[round(t, 3) for t in times]}  (fp32, TF32 off)")
     log(f"peak memory: {peak:.2f} GiB")
     log(f"launches: {counts}  expected {expected}")
-    for k in ("bn_relu", "resize", "reparam", "normal"):
+    for k in ("bn_relu", "resize", "resize_row", "reparam", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the serving path")
     check(counts == expected, f"launch counts {counts} differ from the code's {expected}")
     return counts
@@ -659,14 +725,16 @@ def train_config(**kw) -> TrainConfig:
     return TrainConfig(**base)
 
 
-def expected_train_launches(steps: int) -> dict:
+def expected_train_launches(steps: int, amp: bool = True) -> dict:
     """Launches the training path's code implies: per forward, 29 encoder
     (stage sizes 3, 4, 6, 3: every block's conv2 and its stride-1 conv1) and
     8 decoder conv + BN pairs take the conv kernel, 4 decoder upsamples and
     the final one to 512^2 the resize kernel, whose backward runs as often,
     and the latent draw one noise kernel; eval BN+ReLU and the fused draw
-    are not on this path."""
-    per_step = {"conv_bn_stats": 29 + 8, "resize": 5, "resize_bwd": 5, "normal": 1,
+    are not on this path.  The logits' resize takes the row kernel, and
+    without `amp` every conv launch the fp32 kernel."""
+    per_step = {"conv_bn_stats": 29 + 8, "conv_bn_stats_fp32": 0 if amp else 29 + 8,
+                "resize": 5, "resize_row": 1, "resize_bwd": 5, "normal": 1,
                 "bn_relu": 0, "reparam": 0}
     return {k: v * steps for k, v in per_step.items()}
 
@@ -731,7 +799,7 @@ def phase_train() -> dict:
                     "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
     expected = expected_train_launches(TIMED_STEPS)
     log(f"train launches over {TIMED_STEPS} steps: {counts}  expected {expected}")
-    for k in ("conv_bn_stats", "resize", "resize_bwd", "normal"):
+    for k in ("conv_bn_stats", "resize", "resize_row", "resize_bwd", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the training path")
     check(counts == expected, f"training launch counts {counts} differ from the code's {expected}")
 
@@ -746,8 +814,8 @@ def phase_train() -> dict:
           and bool(torch.isfinite(logits).all()), "eval logits")
     for k, v in metrics.items():
         check(0.0 <= v.item() <= 1.0, f"eval metric {k} = {v.item()}")
-    expected_eval = {"bn_relu": 17 + 13, "resize": 5, "normal": 1, "reparam": 0,
-                     "resize_bwd": 0, "conv_bn_stats": 0}
+    expected_eval = {"bn_relu": 17 + 13, "resize": 5, "resize_row": 1, "normal": 1, "reparam": 0,
+                     "resize_bwd": 0, "conv_bn_stats": 0, "conv_bn_stats_fp32": 0}
     log(f"eval step: {({k: round(v.item(), 5) for k, v in metrics.items()})}  launches {ecounts}")
     check(ecounts == expected_eval, f"eval launch counts {ecounts} differ from {expected_eval}")
     del state, step, eval_step, images, masks, logits
@@ -756,6 +824,53 @@ def phase_train() -> dict:
 
 
 # ----- phase 7 -------------------------------------------------------------
+
+FP32_WARMUP_STEPS, FP32_TIMED_STEPS = 2, 5
+
+
+def phase_train_fp32() -> dict:
+    """The step of phase 6 with ``amp=False`` and TF32 off, at full width:
+    every conv + BN pair goes through the fp32 conv kernel."""
+    use_fp32_numerics()
+    config = train_config(amp=False)
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3), device="cuda", generator=g)
+    masks = (torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 1), device="cuda", generator=g)
+             > 0.9).float()
+    for _ in range(FP32_WARMUP_STEPS):
+        state, aux = step(state, images, masks, 0.001)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(FP32_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, images, masks, 0.001)
+        losses.append(aux["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _ext.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"fp32 losses {losses}")
+    img_s = TRAIN_BATCH * FP32_TIMED_STEPS / sum(times)
+    log(f"fp32 train steps (amp=False, TF32 off): p50 {statistics.median(times):.4f} s  max "
+        f"{max(times):.4f} s  all {[round(t, 4) for t in times]}  loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}")
+    log(f"fp32 train peak memory: {peak:.2f} GiB")
+    log(json.dumps({"metric": "images_per_sec_per_chip_512sq_vaeunet_train_torch_fp32",
+                    "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
+    expected = expected_train_launches(FP32_TIMED_STEPS, amp=False)
+    log(f"fp32 train launches over {FP32_TIMED_STEPS} steps: {counts}  expected {expected}")
+    check(counts["conv_bn_stats_fp32"] > 0, "the fp32 conv kernel was not launched")
+    check(counts == expected, f"fp32 launch counts {counts} differ from the code's {expected}")
+    del state, step, images, masks
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----- phase 8 -------------------------------------------------------------
 
 def phase_train_parity() -> None:
     """One fp32 step on the card and on the CPU from the same weights,
@@ -799,7 +914,22 @@ KERNELS = (
      "vaeunet_tpu/ops/pallas/resize_mm.py:125-151"),
     ("conv_bn_stats", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
      "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
+    # the fp32 kernel of the same wrapper, and the one-channel kernel of the resize's
+    ("conv_bn_stats_fp32", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
+     "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
+    ("resize_c1", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),
 )
+# entry of the kernels line -> its launch counter where the names differ
+COUNTERS = {"resize_c1": "resize_row"}
+# wrapper -> the counter of its second kernel, whose launches it also counts
+OTHER_KERNEL = {"resize": "resize_row", "conv_bn_stats": "conv_bn_stats_fp32"}
+
+
+def path_launches(name: str, *phases: dict) -> int:
+    """Launches of one entry's kernel over the paths' phases: a wrapper's
+    count less those that took its other kernel."""
+    other = OTHER_KERNEL.get(name)
+    return sum(c[COUNTERS.get(name, name)] - (c[other] if other else 0) for c in phases)
 
 
 def main() -> None:
@@ -816,16 +946,18 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     train_counts = phase_train()
+    fp32_counts = phase_train_fp32()
     phase_train_parity()
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name] + train_counts[name],
+                        "launches": path_launches(name, counts, train_counts, fp32_counts),
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"], "shape": rec["shape"]})
+                        "library_ms": rec["library_ms"], "shape": rec["shape"],
+                        **({"wrapper_ms": rec["wrapper_ms"]} if "wrapper_ms" in rec else {})})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -146,6 +146,44 @@ def test_conv_bn_stats_tensor_core_kernel_matches_plain(cuda, shape, co):
     _check_conv(cuda, shape, co, torch.bfloat16)
 
 
+@pytest.mark.parametrize("shape,co", [
+    ((2, 64, 12, 20), 64),      # whole 16-byte channel vectors; H, W off the 8 x 16 tile
+    ((1, 224, 9, 23), 128),     # 28 chunks of 8; two channel blocks
+    ((1, 800, 17, 18), 512),    # the deepest conv of the step: 100 chunks, eight blocks
+    ((2, 5, 10, 19), 7),        # Ci off a vector: the 4-byte copies; Co off a vector
+    ((2, 6, 8, 16), 70),        # a ragged last chunk and a ragged last channel block
+    ((1, 64, 31, 7), 64)])
+def test_conv_bn_stats_fp32_kernel_matches_plain(cuda, shape, co):
+    _check_conv(cuda, shape, co, torch.float32)
+
+
+def test_conv_bn_stats_fp32_kernel_off_a_16_byte_address(cuda):
+    """x four bytes off a 16-byte address takes the 4-byte copies and gives
+    the aligned call's bits."""
+    x, w = _conv_case(cuda, (2, 8, 9, 17), 12, torch.float32)
+    base = torch.zeros(x.numel() + 1, device=cuda)
+    base[1:] = x.permute(0, 2, 3, 1).reshape(-1)
+    off = base[1:].view(2, 9, 17, 8).permute(0, 3, 1, 2)
+    assert off.data_ptr() % 16 == 4 and off.is_contiguous(memory_format=torch.channels_last)
+    for a, b in zip(conv_bn_stats.conv3x3_bn_stats(off, w), conv_bn_stats.conv3x3_bn_stats(x, w)):
+        assert torch.equal(a, b)
+
+
+def test_conv_bn_stats_fp32_kernel_launches_on_a_side_stream(cuda):
+    x, w = _conv_case(cuda, (1, 8, 8, 16), 64, torch.float32)
+    x.zero_()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        x.fill_(1.0)
+        y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w)
+    side.synchronize()
+    ry, rs, rq = conv_bn_stats.conv3x3_bn_stats_plain(x, w)
+    torch.testing.assert_close(y, ry, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s, rs, atol=1e-3, rtol=1e-5)
+
+
 def test_conv_bn_stats_tensor_core_layout_with_an_identity_weight(cuda):
     """Only the centre tap, channel c to channel c: y must be x exactly,
     which shows the TMA boxes, the swizzle and the accumulator layout
@@ -181,7 +219,12 @@ def test_launch_path_uses_the_current_stream_and_raises_on_an_error(cuda):
         # a scratch of 3 rows for 1 tile: the C entry refuses it and launches nothing
         _ext.call("conv_bn_stats", "vaeunet_conv3x3_stats_f32", cuda, x.data_ptr(),
                   s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(),
-                  s.data_ptr(), 1, 4, 4, 8, 1, 3)
+                  s.data_ptr(), 1, 4, 4, 8, 1, 32, 64, 3)
+    with pytest.raises(RuntimeError, match="vaeunet_conv3x3_stats_f32 failed with CUDA error"):
+        # weights padded to fewer channels than the block reads: refused as well
+        _ext.call("conv_bn_stats", "vaeunet_conv3x3_stats_f32", cuda, x.data_ptr(),
+                  s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(), s.data_ptr(),
+                  s.data_ptr(), 1, 4, 4, 8, 1, 8, 4, 1)
 
 
 @pytest.mark.parametrize("shape,out_hw", [((2, 8, 16, 16), (32, 32)), ((1, 5, 7, 9), (19, 4)),
@@ -298,6 +341,87 @@ def test_a_refused_tiled_launch_raises(cuda):
     fn, args = resize_mm.launch_args(x, y, True)
     with pytest.raises(RuntimeError, match="vaeunet_resize_f32 failed with CUDA error"):
         _ext.call("resize", fn, cuda, *args[:-1], 400_000)
+
+
+# the logits resize and its like: C = 1 with an output row of whole 16-byte vectors
+ROW_RESIZES = [((8, 1, 256, 256), (512, 512)), ((2, 1, 13, 21), (29, 48)),
+               ((1, 1, 37, 56), (17, 24)), ((3, 1, 16, 10), (16, 40)), ((2, 1, 9, 8), (20, 8))]
+
+
+@pytest.mark.parametrize("shape,out_hw", ROW_RESIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ac", [True, False])
+def test_row_resize_kernel_gives_the_scalar_and_plain_bits(cuda, shape, out_hw, dtype, ac):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = cl(torch.randn(shape, device=cuda, generator=gen).to(dtype))
+    y = torch.full((shape[0], 1, *out_hw), float("nan"), device=cuda, dtype=dtype)
+    y = cl(y)
+    fn, args = resize_mm.launch_args(x, y, ac)
+    assert "_row_" in fn
+    before = _ext.launch_counts()["resize"]
+    out = resize_mm.resize(x, out_hw, ac)
+    assert _ext.launch_counts()["resize"] == before + 1 and out.grad_fn is None
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, resize_mm.resize_plain(x, out_hw, ac))
+    assert torch.equal(out, _other_route(x, out, ac, False))
+    assert torch.equal(out, resize_mm.resize(x, out_hw, ac))
+    if dtype == torch.float32:
+        lib = F.interpolate(x, size=out_hw, mode="bilinear", align_corners=ac)
+        torch.testing.assert_close(out, lib, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tile", [(1, 8), (2, 64), (64, 8), (8, 512)])
+def test_row_resize_kernel_at_other_tiles(cuda, tile):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = cl(torch.randn((2, 1, 45, 52), device=cuda, generator=gen).to(dtype))
+        want = resize_mm.resize(x, (77, 104), False)
+        plan = resize_mm.plan_forward((45, 52), (77, 104), 1, x.element_size(), False, 2, tile)
+        other = torch.full_like(want, float("nan"))
+        fn, args = resize_mm.launch_args(x, other, False, plan=plan)
+        assert "_row_" in fn
+        _ext.call("resize", fn, x.device, *args)
+        assert torch.equal(other, want)
+
+
+def test_one_channel_resize_off_a_vector_takes_the_scalar_route(cuda):
+    x = cl(torch.randn((2, 1, 13, 21), device=cuda))
+    y = cl(torch.empty((2, 1, 29, 45), device=cuda))
+    assert "_scalar_" in resize_mm.launch_args(x, y, True)[0]
+    torch.testing.assert_close(resize_mm.resize(x, (29, 45), True),
+                               resize_mm.resize_plain(x, (29, 45), True), atol=1e-6, rtol=0)
+
+
+def test_a_refused_row_launch_raises(cuda):
+    x = cl(torch.zeros((1, 1, 8, 8), device=cuda))
+    y = cl(torch.zeros((1, 1, 16, 16), device=cuda))
+    fn, args = resize_mm.launch_args(x, y, True)
+    with pytest.raises(RuntimeError, match="vaeunet_resize_row_f32 failed with CUDA error"):
+        _ext.call("resize", fn, cuda, *args[:-1], 400_000)
+    # the refusal left nothing behind: the next launch goes through
+    assert torch.equal(resize_mm.resize(x, (16, 16), True), y)
+
+
+def test_resize_call_forms_with_and_without_a_graph(cuda):
+    """No graph to record: a direct launch, no grad_fn.  A leaf that
+    requires grad: the Function, whose backward is the gradient kernel."""
+    x = cl(torch.randn((2, 1, 16, 16), device=cuda))
+    with torch.no_grad():
+        a = resize_mm.resize(x.clone().requires_grad_(), (32, 32), True)
+    with torch.inference_mode():
+        b = resize_mm.resize(x, (32, 32), True)
+    c = resize_mm.resize(x, (32, 32), True)
+    leaf = x.clone().requires_grad_()
+    d = resize_mm.resize(leaf, (32, 32), True)
+    assert a.grad_fn is None and c.grad_fn is None and d.grad_fn is not None
+    assert torch.equal(a, c) and torch.equal(b.clone(), c) and torch.equal(d.detach(), c)
+    before = _ext.launch_counts()["resize_bwd"]
+    d.sum().backward()
+    assert _ext.launch_counts()["resize_bwd"] == before + 1
+    torch.testing.assert_close(
+        leaf.grad, resize_mm.resize_backward_plain(torch.ones_like(d), (16, 16), True),
+        atol=1e-6, rtol=0)
 
 
 def test_resize_gradient_reaches_the_input_on_cuda(cuda):

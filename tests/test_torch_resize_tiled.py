@@ -1,8 +1,9 @@
-"""The tiled resize kernels' rule, on the CPU: a numpy fp32 model of what a
-block of ``csrc/resize.cu`` does -- stage the span its tables name, blend
-one axis into a buffer, the other from it -- against the plain versions bit
-for bit; the span helpers and the shared memory they imply; and which route
-each shape takes.  The kernels themselves run only on the card
+"""The tiled and row resize kernels' rule, on the CPU: a numpy fp32 model of
+what a block of ``csrc/resize.cu`` does -- stage the span its tables name,
+blend one axis into a buffer, the other from it -- against the plain
+versions bit for bit; the span helpers and the shared memory they imply;
+which route each shape takes; and the wrapper's direct launch where no
+graph is recorded.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).  Inputs come from numpy seeds."""
 
 import itertools
@@ -175,8 +176,15 @@ PATH = [(8, 4, *layer) for layer in PATH_LAYERS] + [(16, 2, *layer) for layer in
 def test_path_shapes_route_and_shared_memory(batch, elem, c, size, out, backward):
     planner = resize_mm.plan_backward if backward else resize_mm.plan_forward
     plan = planner((size, size), (out, out), c, elem, True, batch)
-    if c == 1:
+    if c == 1 and backward:
         assert plan == resize_mm.TilePlan("scalar")
+        return
+    if c == 1:                                  # the logits resize: vectors along W
+        assert plan.route == "row" and (plan.tile_h, plan.tile_w) == resize_mm.ROW_TILE
+        assert plan.smem_bytes == resize_mm.row_smem_bytes(plan.tile_h, plan.tile_w,
+                                                           plan.span_h, plan.span_w, elem)
+        assert 4 * plan.smem_bytes <= resize_mm.SMEM_LIMIT
+        assert plan.blocks == batch * (out // plan.tile_h) * (out // plan.tile_w) >= 32
         return
     assert plan.route == "tiled"
     assert (plan.tile_h, plan.tile_w) == (resize_mm.BACKWARD_TILE if backward
@@ -261,3 +269,138 @@ def test_a_tensor_off_a_16_byte_address_takes_the_scalar_route():
     assert resize_mm.launch_args(y, x, True, backward=True)[0] == "vaeunet_resize_bwd_scalar_f32"
     assert resize_mm.launch_args(x.clone(memory_format=torch.channels_last), y,
                                  True)[0] == "vaeunet_resize_f32"
+
+
+# ----- the row route (C = 1) -------------------------------------------------
+
+def row_forward_model(x: np.ndarray, out_hw, ac: bool, tile, vec: int) -> np.ndarray:
+    """x [B, H, W] fp32 -> y, block by block as resize_row_kernel does: the
+    span's first column rounded down to a vector of `vec` elements, a staged
+    row every ``row_pitch`` elements, table entries relative to the span."""
+    b, h, w = x.shape
+    oh, ow = out_hw
+    assert ow % vec == 0 and tile[1] % vec == 0
+    h0, h1, lh = resize_mm.axis_table(h, oh, ac)
+    w0, w1, lw = resize_mm.axis_table(w, ow, ac)
+    hspan = resize_mm.forward_spans(h0, h1, tile[0])
+    wspan = resize_mm.forward_spans(w0, w1, tile[1])
+    pitch = resize_mm.row_pitch(int(wspan[:, 1].max()), 16 // vec)
+    y = np.full((b, oh, ow), np.nan, np.float32)
+    for (th, (h_lo, sh)), (tw, (w_first, sw)) in itertools.product(enumerate(hspan),
+                                                                   enumerate(wspan)):
+        rows = slice(th * tile[0], min((th + 1) * tile[0], oh))
+        cols = slice(tw * tile[1], min((tw + 1) * tile[1], ow))
+        w_lo, w_hi = w_first // vec * vec, w_first + sw
+        assert w_hi - w_lo <= pitch and pitch % vec == 0
+        xs = np.full((b, sh, pitch), np.nan, np.float32)                   # A
+        xs[:, :, :w_hi - w_lo] = x[:, h_lo:h_lo + sh, w_lo:w_hi]
+        lam = lw[cols][None, None, :]
+        t = (ONE - lam) * xs[:, :, w0[cols] - w_lo] + lam * xs[:, :, w1[cols] - w_lo]   # B
+        lam = lh[rows][None, :, None]
+        y[:, rows, cols] = (ONE - lam) * t[:, h0[rows] - h_lo] + lam * t[:, h1[rows] - h_lo]  # C
+    return y
+
+
+# (input H, W), (output H, W multiple of 8): 2x up, odd up, down, H kept, W kept
+ROW_RESIZES = [((16, 24), (32, 48)), ((7, 5), (19, 16)), ((20, 30), (9, 8)), ((6, 6), (6, 24)),
+               ((9, 8), (20, 8))]
+ROW_TILES = [(16, 32), (4, 8), (1, 8), (8, 16)]       # most do not divide the sizes above
+
+
+@pytest.mark.parametrize("in_hw,out_hw", ROW_RESIZES)
+@pytest.mark.parametrize("ac", [True, False])
+@pytest.mark.parametrize("tile", ROW_TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_forward_model_equals_the_plain_version(in_hw, out_hw, ac, tile, dtype):
+    """Bit for bit; bf16 is blended in fp32 and rounded once at the store."""
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, *in_hw).astype(np.float32)).to(dtype)
+    vec = 16 // x.element_size()
+    ours = torch.from_numpy(row_forward_model(x.float().numpy(), out_hw, ac, tile, vec)).to(dtype)
+    ref = resize_mm.resize_plain(x[:, None], out_hw, ac)
+    assert ref.dtype == dtype and torch.equal(ours[:, None], ref)
+
+
+@pytest.mark.parametrize("c,elem,out_w,forward,backward", [
+    (1, 4, 512, "row", "scalar"), (1, 2, 512, "row", "scalar"),   # the logits resize
+    (1, 4, 20, "row", "scalar"), (1, 2, 24, "row", "scalar"),
+    (1, 4, 18, "scalar", "scalar"), (1, 2, 20, "scalar", "scalar"),   # OW off a vector
+    (3, 4, 512, "scalar", "scalar"), (4, 2, 512, "scalar", "scalar"),
+    (4, 4, 512, "tiled", "tiled"), (8, 2, 512, "tiled", "tiled")])
+def test_route_rule_of_the_one_channel_resize(c, elem, out_w, forward, backward):
+    """C = 1 with an output row of whole 16-byte vectors takes the row
+    route forward; every other shape keeps the route it had."""
+    assert resize_mm.plan_forward((9, 11), (21, out_w), c, elem, True, 2).route == forward
+    assert resize_mm.plan_backward((9, 11), (21, out_w), c, elem, True, 2).route == backward
+
+
+def test_row_shared_memory_formula_matches_the_layout():
+    # fp32 16 x 128 outputs, span 10 x 66: tables 12 (16 + 128) = 1728 B; a staged row of
+    # 66 + 3 -> 72 floats, 10 of them 2,880 B; t 10 x 128 fp32 5,120 B
+    assert resize_mm.row_pitch(66, 4) == 72 and resize_mm.row_pitch(66, 2) == 80
+    assert resize_mm.row_smem_bytes(16, 128, 10, 66, 4) == 1728 + 2880 + 5120
+    # bf16: 66 + 7 -> 80 elements of 2 bytes; t stays fp32
+    assert resize_mm.row_smem_bytes(16, 128, 10, 66, 2) == 1728 + 1600 + 5120
+    # the staged span is rounded up to 16 bytes: 3 rows of 8 bf16
+    assert resize_mm.row_pitch(1, 2) == 8 and resize_mm.row_pitch(2, 4) == 8
+    assert resize_mm.row_smem_bytes(1, 8, 3, 1, 2) == 112 + 48 + 96
+
+
+def test_row_route_shrinks_its_tile_for_a_strong_downsample():
+    plan = resize_mm.plan_forward((4000, 4000), (64, 64), 1, 4, False, 1)
+    assert plan.route == "row" and plan.smem_bytes <= resize_mm.SMEM_BUDGET
+    assert plan.tile_h * plan.tile_w < 64 * 64 and plan.tile_w % 4 == 0
+    small = resize_mm.plan_forward((3, 3), (5, 8), 1, 2, True, 2)
+    assert (small.tile_h, small.tile_w) == (8, 8)            # no larger than the output needs
+    with pytest.raises(ValueError, match="shared memory"):
+        resize_mm.plan_forward((100000, 8), (8, 8), 1, 4, False, 1, tile=(8, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_launch_arguments_fit_the_c_entry(dtype):
+    x = torch.zeros((2, 1, 16, 24), dtype=dtype).contiguous(memory_format=torch.channels_last)
+    y = torch.zeros((2, 1, 32, 48), dtype=dtype).contiguous(memory_format=torch.channels_last)
+    fn, args = resize_mm.launch_args(x, y, True)
+    assert fn == f"vaeunet_resize_row_{'f32' if dtype == torch.float32 else 'bf16'}"
+    assert len(args) + 1 == len(_ext.SIGNATURES["resize"][fn])
+    assert args[:2] == (x.data_ptr(), y.data_ptr()) and all(isinstance(a, int) for a in args)
+    plan = resize_mm.plan_forward((16, 24), (32, 48), 1, x.element_size(), True, 2)
+    vec = 16 // x.element_size()
+    assert args[10:16] == (2, 16, 24, 1, 32, 48)
+    assert (1 << args[16], (1 << args[17]) * vec) == (plan.tile_h, plan.tile_w)
+    assert args[18:] == (resize_mm.row_pitch(plan.span_w, x.element_size()), plan.smem_bytes)
+    # the scalar kernel on the same tensors, and a tensor off a 16-byte address
+    assert resize_mm.launch_args(x, y, True, scalar=True)[0].count("_scalar_") == 1
+    base = torch.zeros(2 * 16 * 24 + 4, dtype=dtype)
+    off = base[1:1 + 2 * 16 * 24].view(2, 16, 24, 1).permute(0, 3, 1, 2)
+    assert off.data_ptr() % 16 != 0
+    assert resize_mm.launch_args(off, y, True)[0].count("_scalar_") == 1
+    # a second lookup of the same launch is served from the per-shape cache
+    n = len(resize_mm._SETUPS)
+    assert resize_mm.launch_args(x, y, True) == (fn, args) and len(resize_mm._SETUPS) == n
+
+
+def test_wrapper_launches_directly_unless_a_graph_is_recorded(monkeypatch):
+    """Without a graph to record (no grad mode, inference mode, or an input
+    that does not require grad) the launch does not go through
+    ``Function.apply``; with one, the result carries a grad_fn whose backward
+    is the gradient kernel's wrapper.  The launch itself is stubbed."""
+    launched, applied = [], []
+    monkeypatch.setattr(_ext, "call", lambda lib, fn, dev, *args: launched.append(fn))
+    real_apply = resize_mm._ResizeCuda.apply
+    monkeypatch.setattr(resize_mm._ResizeCuda, "apply",
+                        lambda *a: applied.append(1) or real_apply(*a))
+    x = torch.zeros((2, 1, 8, 8)).contiguous(memory_format=torch.channels_last)
+    before = _ext.launch_counts()["resize"]
+    for ctx, leaf in ((torch.no_grad(), x.clone().requires_grad_()),
+                      (torch.inference_mode(), x), (torch.enable_grad(), x)):
+        with ctx:
+            y = resize_mm._launch_or_record(leaf, 16, 16, True)
+        assert y.grad_fn is None and not y.requires_grad and tuple(y.shape) == (2, 1, 16, 16)
+    assert applied == [] and launched == ["vaeunet_resize_row_f32"] * 3
+    leaf = x.clone().requires_grad_()
+    y = resize_mm._launch_or_record(leaf, 16, 16, True)
+    assert applied == [1] and len(launched) == 4 and y.grad_fn is not None
+    assert _ext.launch_counts()["resize"] == before + 4
+    y.backward(torch.ones_like(y))                 # a CPU cotangent: the plain gradient
+    assert leaf.grad is not None and torch.equal(
+        leaf.grad, resize_mm.resize_backward_plain(torch.ones_like(y), (8, 8), True))

@@ -20,9 +20,9 @@
 // the fp32 accumulators before y is rounded to its type, as the TPU kernel
 // takes them (conv_bn_stats.py:56-60).
 //
-// Bound on this card: operations, 2 * B*H*W*Ci*Co*9 over the tensor-core
-// peak of the input type (989 TFLOP/s bf16; fp32 has no tensor-core path
-// here: 67 TFLOP/s), far above the bytes term at the training step's shapes.
+// Bound on this card: operations, 2 * B*H*W*Ci*Co*9 over the peak of the
+// input type (989 TFLOP/s on the bf16 tensor cores; 67 TFLOP/s on the fp32
+// pipes), far above the bytes term at the training step's shapes.
 //
 // bf16: conv3x3_stats_wgmma_kernel, an implicit GEMM on the tensor cores
 // with M = the tile's 128 pixels, N = BN output channels (64 when Co <= 64,
@@ -41,16 +41,42 @@
 // column's moments over the thread's rows, then a fixed __shfl_xor tree,
 // then the 8 warps in order through shared memory.
 //
-// fp32: conv3x3_stats_kernel, the SIMT kernel: for each chunk of 8 input
-// channels it stages the (TH+2) x (TW+2) input patch and the 3 x 3 x 8 x 64
-// weight slice in shared memory and every thread accumulates 4 pixels x 8
-// channels with fp32 FMAs.  fp32 is off the training path (bf16 there); it
-// serves the card-versus-CPU parity runs.
+// fp32: conv3x3_stats_f32_kernel, a register-tiled SIMT kernel with true fp32
+// products and sums (FMA; no TF32, no tensor cores: this route is what holds
+// the card against the CPU to 1e-5, and what TrainConfig.amp = False trains
+// with).  Its bound is the 67 TFLOP/s of the fp32 pipes.  An SM starts four
+// FMA warp-instructions a clock but only one shared-memory one, so the
+// design is about FMAs per shared-memory load and about never waiting on
+// global memory:
+//   - a block is 128 threads for the tile's 128 pixels x 64 output channels;
+//     a thread owns 8 neighbouring columns of one output row x 8 channels
+//     (two runs of 4: cg*4.. and 32 + cg*4..), 64 accumulators;
+//   - shared memory holds, per stage, the (8+2) x (16+2) input patch of a
+//     chunk of kF32Chunk input channels, channel fastest, and the chunk's
+//     9 x kF32Chunk x 64 weights, output channel fastest.  Every load in the
+//     inner loop is 16 bytes (LDS.128): 10 loads fetch four input channels of
+//     the thread's 10 input columns of one patch row, which serve its 8
+//     outputs x 3 kx taps from registers, and 2 loads fetch the 8 weights of
+//     one (tap, input channel): 34 loads for 768 FMAs.  The 8 threads that
+//     share a pixel group read one address (a broadcast); the 4 pixel groups
+//     of a warp are 4 patch rows, which the row pitch (+4 floats) puts on
+//     disjoint banks; the 8 channel groups read 128 contiguous bytes;
+//   - a ring of kF32Stages stages filled by cp.async, 16 bytes a thread
+//     where Ci is a multiple of 4 and x starts on a 16-byte address, else 4
+//     bytes; the padding, the pixels outside x and the channels past Ci are
+//     the copy's zero fill.  The loads of chunk k + kF32Stages - 1 run under
+//     the FMAs of chunk k, one __syncthreads a chunk;
+//   - y leaves as 16-byte stores, a pixel's channels on neighbouring
+//     addresses (scalar where Co is not a multiple of 4); the moments go
+//     thread rows first, then the 16 pixel groups of each channel in order
+//     through shared memory into the tile's scratch row.
 //
-// Weights: fp32 in HWIO order ([3][3][Ci][Co], Co fastest); bf16 K-major
-// [9][Co][Ci] with tap = kx * 3 + ky and Ci a multiple of 8 (TMA needs
-// 16-byte strides), which the wrapper makes from PyTorch's OIHW, zero-padding
-// the channels of x and w where Ci is not a multiple of 8.
+// Weights: fp32 [9][ci_pad][co_pad] with tap = ky * 3 + kx, Co fastest, zero
+// beyond Ci and Co (ci_pad a multiple of the chunk, co_pad of the block's 64
+// channels, so the weight copies need no guard); bf16 K-major [9][Co][Ci]
+// with tap = kx * 3 + ky and Ci a multiple of 8 (TMA needs 16-byte strides).
+// The wrapper makes both from PyTorch's OIHW, and zero-pads the channels of
+// a bf16 x where Ci is not a multiple of 8.
 //
 // The TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
@@ -65,142 +91,266 @@ namespace {
 constexpr int kTH = 8;             // output rows per tile
 constexpr int kTW = 16;            // output columns per tile
 
-// ----- fp32: SIMT -----------------------------------------------------------
+// ----- fp32: SIMT, register-tiled -------------------------------------------
 
-constexpr int kTCI = 8;            // input channels per shared-memory chunk
-constexpr int kTCO = 64;           // output channels per tile
-constexpr int kThreads = 256;
-constexpr int kPH = kTH + 2;
-constexpr int kPW = kTW + 2;
-constexpr int kPatch = kPH * kPW * kTCI;       // 1440 floats
-constexpr int kWeights = 9 * kTCI * kTCO;      // 4608 floats
-constexpr int kPix = 4;                        // pixels per thread: one row, columns pc + 4p
-constexpr int kCo = 8;                         // channels per thread: cg + 8j
-constexpr int kPixGroups = kThreads / (kTCO / kCo);   // 32
-constexpr int kReduceLanes = 32;               // rows reduced side by side per channel
+#ifndef VAEUNET_F32_CHUNK
+#define VAEUNET_F32_CHUNK 8
+#endif
+#ifndef VAEUNET_F32_STAGES
+#define VAEUNET_F32_STAGES 3
+#endif
+#ifndef VAEUNET_F32_BLOCKS_PER_SM
+#define VAEUNET_F32_BLOCKS_PER_SM 2
+#endif
 
-static_assert(kPixGroups * kPix == kTH * kTW, "tile and thread map disagree");
-static_assert(2 * kPixGroups * kTCO <= kPatch + kWeights, "moment scratch must fit");
+constexpr int kF32Chunk = VAEUNET_F32_CHUNK;     // input channels per stage
+constexpr int kF32Stages = VAEUNET_F32_STAGES;   // stages of the cp.async ring
+constexpr int kF32BN = 64;                       // output channels per block
+constexpr int kF32Threads = 2 * kF32BN;          // 16 pixel groups x 8 channel groups
+constexpr int kPH = kTH + 2;                     // staged patch: 10 rows
+constexpr int kPW = kTW + 2;                     //               18 columns
+// floats per staged patch row: 4 more than its pixels hold, so that the four
+// rows a warp's pixel groups read start on disjoint banks
+constexpr int kXRow = kPW * kF32Chunk + 4;
+constexpr int kXFloats = kPH * kXRow;
+constexpr int kWFloats = 9 * kF32Chunk * kF32BN;
+constexpr int kStageFloats = kXFloats + kWFloats;
+constexpr int kF32Smem = kF32Stages * kStageFloats * 4;
+constexpr int kPixGroups = kF32Threads / (kF32BN / 8);   // 16
+constexpr int kReduceLanes = 32;                 // rows reduced side by side per channel
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ y, float* __restrict__ part_s,
-                     float* __restrict__ part_q, int H, int W, int Ci, int Co, int tiles_h,
-                     int tiles_w) {
-  __shared__ float smem[kPatch + kWeights];
-  float* xs = smem;             // [kPH][kPW][kTCI]
-  float* ws = smem + kPatch;    // [9][kTCI][kTCO]
+static_assert(kF32Chunk % 4 == 0 && kF32Chunk <= 32, "a chunk is whole 16-byte vectors");
+static_assert(kF32Stages >= 2, "the ring needs a stage to fill while one is read");
+static_assert(kPixGroups * 8 == kTH * kTW, "tile and thread map disagree");
+static_assert(2 * kPixGroups * kF32BN <= kF32Stages * kStageFloats, "moment scratch must fit");
+static_assert(kF32Smem <= 232448, "over the card's shared memory");
 
-  const int tile = blockIdx.x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copies `valid ? 16 : 0` bytes and fills the rest of the 16 with zeros
+__device__ __forceinline__ void cp_async_16(float* smem, const float* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(float* smem, const float* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of the newest groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stage: the patch of input channels [ci0, ci0 + kF32Chunk) around the
+// tile at (h0, w0) into xs[row][column][channel], zero outside x and past
+// Ci, and the chunk's weights into ws[tap][channel][output channel].  Every
+// divisor is a compile-time constant.
+template <bool VEC>
+__device__ __forceinline__ void stage_chunk(float* xs, float* ws, const float* __restrict__ x_img,
+                                            const float* __restrict__ w, int H, int W, int Ci,
+                                            int ci_pad, int co_pad, int h0, int w0, int ci0,
+                                            int co0) {
+  const int t = threadIdx.x;
+  constexpr int kPer = VEC ? 4 : 1;                  // channels a copy moves
+  constexpr int kCV = kF32Chunk / kPer;              // copies per pixel
+  for (int i = t; i < kPH * kPW * kCV; i += kF32Threads) {
+    const int cv = i % kCV;
+    const int p = i / kCV;
+    const int pr = p / kPW;
+    const int pc = p % kPW;
+    const int hh = h0 - 1 + pr;
+    const int ww = w0 - 1 + pc;
+    const int cc = ci0 + cv * kPer;
+    const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W && cc < Ci;
+    const float* src = ok ? x_img + (static_cast<int64_t>(hh) * W + ww) * Ci + cc : x_img;
+    float* dst = xs + pr * kXRow + pc * kF32Chunk + cv * kPer;
+    if (VEC) {
+      cp_async_16(dst, src, ok);
+    } else {
+      cp_async_4(dst, src, ok);
+    }
+  }
+  constexpr int kRowVecs = kF32BN / 4;
+  for (int i = t; i < 9 * kF32Chunk * kRowVecs; i += kF32Threads) {
+    const int v = i % kRowVecs;
+    const int r = i / kRowVecs;                      // tap * kF32Chunk + channel
+    const int tap = r / kF32Chunk;
+    const int ci = r % kF32Chunk;
+    cp_async_16(ws + r * kF32BN + v * 4,
+                w + (static_cast<int64_t>(tap) * ci_pad + ci0 + ci) * co_pad + co0 + v * 4, true);
+  }
+}
+
+// Block = one 8 x 16 pixel tile of one image x 64 output channels
+// (blockIdx.x = tile * n_blocks + channel block).  Thread t: channel group
+// cg = t % 8 (channels cg*4 .. +3 and 32 + cg*4 .. +3), pixel group pg = t / 8
+// = one tile row and 8 neighbouring columns of it; the 4 pixel groups of a
+// warp are 4 rows of the same columns.
+template <bool VEC>
+__global__ void __launch_bounds__(kF32Threads, VAEUNET_F32_BLOCKS_PER_SM)
+conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         float* __restrict__ y, float* __restrict__ part_s,
+                         float* __restrict__ part_q, int H, int W, int Ci, int Co, int ci_pad,
+                         int co_pad, int tiles_h, int tiles_w, int n_blocks) {
+  extern __shared__ float4 smem_f32[];
+  float* smem = reinterpret_cast<float*>(smem_f32);
+
+  const int nb = blockIdx.x % n_blocks;
+  const int tile = blockIdx.x / n_blocks;
   const int tw_i = tile % tiles_w;
   const int th_i = (tile / tiles_w) % tiles_h;
   const int b = tile / (tiles_w * tiles_h);
   const int h0 = th_i * kTH;
   const int w0 = tw_i * kTW;
-  const int co0 = blockIdx.y * kTCO;
+  const int co0 = nb * kF32BN;
 
   const int t = threadIdx.x;
-  const int cg = t % (kTCO / kCo);   // channels cg + 8j
-  const int pg = t / (kTCO / kCo);   // pixel group 0..31
-  const int pr = pg / 4;             // tile row
-  const int pc = pg % 4;             // tile columns pc + 4p
+  const int cg = t % (kF32BN / 8);
+  const int pg = t / (kF32BN / 8);
+  const int pr = (pg & 3) + ((pg >> 3) << 2);      // tile row
+  const int pc0 = ((pg >> 2) & 1) * 8;             // first of the 8 tile columns
 
-  float acc[kPix][kCo];
+  float acc[8][8];
 #pragma unroll
-  for (int p = 0; p < kPix; ++p)
+  for (int p = 0; p < 8; ++p)
 #pragma unroll
-    for (int j = 0; j < kCo; ++j) acc[p][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[p][j] = 0.0f;
 
-  const int64_t x_img = static_cast<int64_t>(b) * H * W * Ci;
-  for (int ci0 = 0; ci0 < Ci; ci0 += kTCI) {
-    for (int i = t; i < kPatch; i += kThreads) {
-      const int ci = i % kTCI;
-      const int pix = i / kTCI;
-      const int hh = h0 - 1 + pix / kPW;
-      const int ww = w0 - 1 + pix % kPW;
-      const int cc = ci0 + ci;
-      float v = 0.0f;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W && cc < Ci)
-        v = x[x_img + (static_cast<int64_t>(hh) * W + ww) * Ci + cc];
-      xs[i] = v;
-    }
-    for (int i = t; i < kWeights; i += kThreads) {
-      const int co = i % kTCO;
-      const int r = i / kTCO;
-      const int ci = r % kTCI;
-      const int k = r / kTCI;
-      const int cc = ci0 + ci;
-      const int oc = co0 + co;
-      float v = 0.0f;
-      if (cc < Ci && oc < Co) v = w[(static_cast<int64_t>(k) * Ci + cc) * Co + oc];
-      ws[i] = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < kTCI; ++ci) {
+  const float* x_img = x + static_cast<int64_t>(b) * H * W * Ci;
+  const int n_chunks = (Ci + kF32Chunk - 1) / kF32Chunk;
+
+  // fill all but one stage; a group is committed per chunk even when it is
+  // empty, so that the wait below always counts the same number of groups
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < n_chunks)
+      stage_chunk<VEC>(smem + s * kStageFloats, smem + s * kStageFloats + kXFloats, x_img, w, H, W,
+                       Ci, ci_pad, co_pad, h0, w0, s * kF32Chunk, co0);
+    cp_async_commit();
+  }
+  int slot = 0;                    // the stage chunk k is read from
+  int fill = kF32Stages - 1;       // the stage chunk k + kF32Stages - 1 goes into
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait<kF32Stages - 2>();     // chunk k has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and chunk k - 1 has been read
+    const int nk = k + kF32Stages - 1;
+    if (nk < n_chunks)
+      stage_chunk<VEC>(smem + fill * kStageFloats, smem + fill * kStageFloats + kXFloats, x_img, w,
+                       H, W, Ci, ci_pad, co_pad, h0, w0, nk * kF32Chunk, co0);
+    cp_async_commit();
+
+    const float* xrow = smem + slot * kStageFloats + pr * kXRow + pc0 * kF32Chunk;
+    const float* wcol = smem + slot * kStageFloats + kXFloats + cg * 4;
+#pragma unroll 1
+    for (int c4 = 0; c4 < kF32Chunk; c4 += 4) {
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
+        // four input channels of the 10 patch columns under this thread's 8 outputs
+        float xa[10][4];
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          float a[kPix];
-          float bw[kCo];
+        for (int j = 0; j < 10; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(xrow + ky * kXRow + j * kF32Chunk + c4);
+          xa[j][0] = v.x;
+          xa[j][1] = v.y;
+          xa[j][2] = v.z;
+          xa[j][3] = v.w;
+        }
 #pragma unroll
-          for (int p = 0; p < kPix; ++p)
-            a[p] = xs[((pr + ky) * kPW + pc + 4 * p + kx) * kTCI + ci];
+        for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
-          for (int j = 0; j < kCo; ++j) bw[j] = ws[((ky * 3 + kx) * kTCI + ci) * kTCO + cg + 8 * j];
+          for (int kx = 0; kx < 3; ++kx) {
+            const float* wp = wcol + ((ky * 3 + kx) * kF32Chunk + c4 + cc) * kF32BN;
+            const float4 wa = *reinterpret_cast<const float4*>(wp);
+            const float4 wb = *reinterpret_cast<const float4*>(wp + kF32BN / 2);
 #pragma unroll
-          for (int p = 0; p < kPix; ++p)
-#pragma unroll
-            for (int j = 0; j < kCo; ++j) acc[p][j] = fmaf(a[p], bw[j], acc[p][j]);
+            for (int p = 0; p < 8; ++p) {
+              const float a = xa[p + kx][cc];
+              acc[p][0] = fmaf(a, wa.x, acc[p][0]);
+              acc[p][1] = fmaf(a, wa.y, acc[p][1]);
+              acc[p][2] = fmaf(a, wa.z, acc[p][2]);
+              acc[p][3] = fmaf(a, wa.w, acc[p][3]);
+              acc[p][4] = fmaf(a, wb.x, acc[p][4]);
+              acc[p][5] = fmaf(a, wb.y, acc[p][5]);
+              acc[p][6] = fmaf(a, wb.z, acc[p][6]);
+              acc[p][7] = fmaf(a, wb.w, acc[p][7]);
+            }
+          }
         }
       }
     }
-    __syncthreads();
+    slot = slot + 1 == kF32Stages ? 0 : slot + 1;
+    fill = fill + 1 == kF32Stages ? 0 : fill + 1;
   }
+  cp_async_wait<0>();
+  __syncthreads();                 // the ring is free: the moments go through it
 
-  // write y; this thread's moments over its valid pixels
-  float ls[kCo];
-  float lq[kCo];
+  // y, 16 bytes a store, and this thread's moments over its valid pixels.
+  // Channels past Co have zero weights, so their accumulators are 0.
+  float ls[8];
+  float lq[8];
 #pragma unroll
-  for (int j = 0; j < kCo; ++j) {
+  for (int j = 0; j < 8; ++j) {
     ls[j] = 0.0f;
     lq[j] = 0.0f;
   }
   const int hh = h0 + pr;
+  const bool vec_out = Co % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
 #pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    const int ww = w0 + pc + 4 * p;
+  for (int p = 0; p < 8; ++p) {
+    const int ww = w0 + pc0 + p;
     if (hh < H && ww < W) {
-      const int64_t base = ((static_cast<int64_t>(b) * H + hh) * W + ww) * Co;
+      float* yp = y + ((static_cast<int64_t>(b) * H + hh) * W + ww) * Co;
 #pragma unroll
-      for (int j = 0; j < kCo; ++j) {
-        const int oc = co0 + cg + 8 * j;
-        if (oc < Co) {
-          const float v = acc[p][j];
-          y[base + oc] = v;
-          ls[j] += v;
-          lq[j] += v * v;
+      for (int half = 0; half < 2; ++half) {
+        const int oc = co0 + half * (kF32BN / 2) + cg * 4;
+        if (vec_out && oc + 3 < Co) {
+          *reinterpret_cast<float4*>(yp + oc) = make_float4(
+              acc[p][4 * half], acc[p][4 * half + 1], acc[p][4 * half + 2], acc[p][4 * half + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (oc + e < Co) yp[oc + e] = acc[p][4 * half + e];
         }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ls[j] += acc[p][j];
+        lq[j] += acc[p][j] * acc[p][j];
       }
     }
   }
-  // the block's moments: the 32 pixel groups of each channel, in order
-  float* red_s = smem;                       // [kPixGroups][kTCO]
-  float* red_q = smem + kPixGroups * kTCO;   // [kPixGroups][kTCO]
+  // the block's moments: the 16 pixel groups of each channel, in order
+  float* red_s = smem;                            // [kPixGroups][kF32BN]
+  float* red_q = smem + kPixGroups * kF32BN;      // [kPixGroups][kF32BN]
 #pragma unroll
-  for (int j = 0; j < kCo; ++j) {
-    red_s[pg * kTCO + cg + 8 * j] = ls[j];
-    red_q[pg * kTCO + cg + 8 * j] = lq[j];
+  for (int half = 0; half < 2; ++half) {
+    const int c = pg * kF32BN + half * (kF32BN / 2) + cg * 4;
+    *reinterpret_cast<float4*>(red_s + c) =
+        make_float4(ls[4 * half], ls[4 * half + 1], ls[4 * half + 2], ls[4 * half + 3]);
+    *reinterpret_cast<float4*>(red_q + c) =
+        make_float4(lq[4 * half], lq[4 * half + 1], lq[4 * half + 2], lq[4 * half + 3]);
   }
   __syncthreads();
-  if (t < 2 * kTCO) {
-    const int co = t % kTCO;
-    const float* red = t < kTCO ? red_s : red_q;
+  {
+    const int co = t % kF32BN;
+    const float* red = t < kF32BN ? red_s : red_q;
     float v = 0.0f;
-    for (int g = 0; g < kPixGroups; ++g) v += red[g * kTCO + co];
+#pragma unroll
+    for (int g = 0; g < kPixGroups; ++g) v += red[g * kF32BN + co];
     if (co0 + co < Co) {
-      float* part = t < kTCO ? part_s : part_q;
+      float* part = t < kF32BN ? part_s : part_q;
       part[static_cast<int64_t>(tile) * Co + co0 + co] = v;
     }
   }
@@ -228,10 +378,6 @@ struct TcConfig {
   static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kRedFloats * 4 + 16 * kStages;
   static_assert(kStageBytes % 1024 == 0, "stages must stay on 1024-byte swizzle atoms");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -622,17 +768,31 @@ extern "C" {
 // `tiles` is the row count of the scratch the wrapper allocated; it must
 // equal the grid's tile count, or nothing is launched.
 
+// x: NHWC fp32; w: [9][ci_pad][co_pad] fp32 on a 16-byte address, tap =
+// ky * 3 + kx, zero beyond Ci and Co, ci_pad a multiple of the kernel's chunk
+// and co_pad of its 64 channels a block.
 int vaeunet_conv3x3_stats_f32(const float* x, const float* w, float* y, float* part_s,
                               float* part_q, float* s, float* q, int B, int H, int W, int Ci,
-                              int Co, int tiles, void* stream) {
+                              int Co, int ci_pad, int co_pad, int tiles, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles_h = (H + kTH - 1) / kTH;
   const int tiles_w = (W + kTW - 1) / kTW;
-  if (tiles != B * tiles_h * tiles_w) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(tiles), static_cast<unsigned int>((Co + kTCO - 1) / kTCO));
-  conv3x3_stats_kernel<<<grid, kThreads, 0, st>>>(x, w, y, part_s, part_q, H, W, Ci, Co, tiles_h,
-                                                  tiles_w);
-  const cudaError_t err = cudaGetLastError();
+  const int n_blocks = (Co + kF32BN - 1) / kF32BN;
+  if (tiles != B * tiles_h * tiles_w || ci_pad < Ci || ci_pad % kF32Chunk != 0 ||
+      co_pad < n_blocks * kF32BN || co_pad % 4 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      static_cast<int64_t>(tiles) * n_blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = Ci % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const auto kernel = vec ? conv3x3_stats_f32_kernel<true> : conv3x3_stats_f32_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();      // off the runtime's last-error slot
+    return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned int>(tiles) * n_blocks, kF32Threads, kF32Smem, st>>>(
+      x, w, y, part_s, part_q, H, W, Ci, Co, ci_pad, co_pad, tiles_h, tiles_w, n_blocks);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return reduce_partials(part_s, part_q, s, q, tiles, Co, st);
 }

@@ -29,7 +29,7 @@
 // downsample leaves some inputs with an empty list: their gradient is 0.
 // bf16 is blended and summed in fp32 and rounded once.
 //
-// Two routes, chosen on the host from the shape alone
+// Three routes, chosen on the host from the shape alone
 // (resize_mm.py::plan_forward / plan_backward), never after a failed launch:
 //
 // tiled (resize_tiled_kernel, resize_bwd_tiled_kernel): a pixel's channels
@@ -62,11 +62,36 @@
 //   pass 48 KB: the launch raises the kernel's limit first and returns that
 //   call's error like a launch error.
 //
+// row (resize_row_kernel, forward only): C = 1, in the path the logits
+//   resize, where an NHWC row is contiguous along W; the output row is a
+//   whole number of 16-byte vectors and both tensors start on 16-byte
+//   addresses.  The tensors are small (10.5 MB at the path's shapes, inside
+//   the 50 MB L2), so instructions and launch latency set the time, not HBM:
+//   the scalar kernel spent three table loads, four source loads, three
+//   blends and a 2- or 4-byte store on every output, ran at 0.3-0.6 TB/s and
+//   lost to F.interpolate.  Here the tiled kernel's three stages run with W
+//   in the role the channels had.  A block owns 2^th output rows x 2^tw
+//   vectors of 4 (fp32) or 8 (bf16) neighbouring output columns of one image:
+//     A  the source span into shared memory, its first column rounded down
+//        to a vector so that cp.async can copy 16 bytes a thread (W a whole
+//        number of vectors; else element by element), a row every `pitch`
+//        elements; table entries relative to the span;
+//     B  the W blend once per (span row, output column) into the fp32
+//        buffer, a thread making one vector of neighbouring outputs from
+//        vector loads of the tables;
+//     C  the H blend from that buffer, rounded once, one 16-byte store a
+//        thread.
+//   About 1.5 blends an output instead of 3, no division per element, and a
+//   quarter or an eighth of the store instructions
+//   (resize_mm.py::row_smem_bytes mirrors the layout).
+//
 // scalar (resize_bilinear_kernel, resize_bilinear_bwd_kernel): every other
-//   shape, in the path the logits resize with C = 1.  One thread per element
-//   of the physical [B, OH, OW, C] (backward: [B, H, W, C]) array, channel
-//   fastest, reading through the caches.  Grid: blockIdx.y walks the rows,
-//   x-blocks cover one row, so the only divisions per element are by C.
+//   shape (C = 3, a bf16 C = 4, an output row off a vector, a tensor off a
+//   16-byte address, and the backward at C = 1), and the yardstick the other
+//   routes are held against bit for bit.  One thread per element of the
+//   physical [B, OH, OW, C] (backward: [B, H, W, C]) array, channel fastest,
+//   reading through the caches.  Grid: blockIdx.y walks the rows, x-blocks
+//   cover one row, so the only divisions per element are by C.
 
 
 #include <cuda_bf16.h>
@@ -489,6 +514,142 @@ resize_bwd_tiled_kernel(const T* __restrict__ g, T* __restrict__ gx,
   }
 }
 
+// ----- the row route: C = 1, vectors along W ----------------------------------
+
+struct RowTile {
+  int B, H, W, OH, OW;
+  int th, tw;                    // log2 of the tile's rows and of its vectors along W
+  int pitch;                     // elements of a staged row: a whole number of vectors
+  int tiles_h, tiles_w;
+};
+
+// 16 bytes of a shared-memory table
+__device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
+  const int4 q = *reinterpret_cast<const int4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// Block = 2^th output rows x 2^tw vectors of Vec<T>::kN neighbouring output
+// columns of one image.  `vec_in`: W is a whole number of vectors and x
+// starts on a 16-byte address, so stage A may copy 16 bytes a thread.
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads)
+resize_row_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ h0,
+                  const int* __restrict__ h1, const float* __restrict__ lh,
+                  const int* __restrict__ w0, const int* __restrict__ w1,
+                  const float* __restrict__ lw, const int* __restrict__ hspan,
+                  const int* __restrict__ wspan, const RowTile a, const bool vec_in) {
+  using V = Vec<T>;
+  extern __shared__ uint4 smem[];
+  unsigned int blk = blockIdx.x;
+  const int tile_w = blk % a.tiles_w;
+  blk /= a.tiles_w;
+  const int tile_h = blk % a.tiles_h;
+  const int b = blk / a.tiles_h;
+  const int TH = 1 << a.th, TWV = 1 << a.tw, TWC = TWV * V::kN;
+  const int oh_a = tile_h << a.th, ow_a = tile_w * TWC;
+  const int h_lo = hspan[2 * tile_h], sh = hspan[2 * tile_h + 1];
+  const int w_hi = wspan[2 * tile_w] + wspan[2 * tile_w + 1];
+  const int w_lo = wspan[2 * tile_w] & ~(V::kN - 1);      // rounded down to a vector
+
+  // shared memory: the W tables, the H tables | the span of x [sh][pitch] | t, fp32
+  int* s_w0 = reinterpret_cast<int*>(smem);
+  int* s_w1 = s_w0 + TWC;
+  float* s_lw = reinterpret_cast<float*>(s_w1 + TWC);
+  int* s_h0 = reinterpret_cast<int*>(s_lw + TWC);
+  int* s_h1 = s_h0 + TH;
+  float* s_lh = reinterpret_cast<float*>(s_h1 + TH);
+  uint4* xs_v = smem + (12 * (TH + TWC) + 15) / 16;
+  T* xs = reinterpret_cast<T*>(xs_v);
+  float4* ts = reinterpret_cast<float4*>(
+      xs_v + (sh * a.pitch * static_cast<int>(sizeof(T)) + 15) / 16);
+  const int plane = sh << a.tw;
+
+  for (int i = threadIdx.x; i < TWC; i += kTiledThreads) {
+    const int ow = min(ow_a + i, a.OW - 1);      // columns past the edge repeat the last one
+    s_w0[i] = w0[ow] - w_lo;
+    s_w1[i] = w1[ow] - w_lo;
+    s_lw[i] = lw[ow];
+  }
+  for (int i = threadIdx.x; i < TH; i += kTiledThreads) {
+    const int oh = min(oh_a + i, a.OH - 1);
+    s_h0[i] = h0[oh] - h_lo;
+    s_h1[i] = h1[oh] - h_lo;
+    s_lh[i] = lh[oh];
+  }
+
+  // A: rows [h_lo, h_lo + sh) x columns [w_lo, w_hi) of x
+  const T* xb = x + static_cast<int64_t>(b) * a.H * a.W;
+  if (vec_in) {
+    const int nv = (w_hi - w_lo + V::kN - 1) / V::kN;
+    for (int i = threadIdx.x; i < sh * nv; i += kTiledThreads) {
+      const int r = i / nv;
+      const int v = i - r * nv;
+      cp_async16(xs + r * a.pitch + v * V::kN,
+                 xb + static_cast<int64_t>(h_lo + r) * a.W + w_lo + v * V::kN);
+    }
+  } else {
+    const int n = w_hi - w_lo;
+    for (int i = threadIdx.x; i < sh * n; i += kTiledThreads) {
+      const int r = i / n;
+      const int c = i - r * n;
+      xs[r * a.pitch + c] = xb[static_cast<int64_t>(h_lo + r) * a.W + w_lo + c];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // B: t[r, ow] = lerp(x[r, w0[ow]], x[r, w1[ow]], lw[ow]) for the span's rows
+  for (int q = threadIdx.x; q < plane; q += kTiledThreads) {
+    const int v = q & (TWV - 1);
+    const int r = q >> a.tw;
+    const T* row = xs + r * a.pitch;
+    float t[V::kN];
+#pragma unroll
+    for (int g = 0; g < V::kN; g += 4) {
+      int i0[4], i1[4];
+      float lam[4];
+      load4(s_w0 + v * V::kN + g, i0);
+      load4(s_w1 + v * V::kN + g, i1);
+      load4(s_lw + v * V::kN + g, lam);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t[g + j] = lerp_rn(load(row, i0[j]), load(row, i1[j]), lam[j]);
+    }
+    store_planes<V::kN>(ts, plane, q, t);
+  }
+  __syncthreads();
+
+  // C: y[oh, ow] = lerp(t[h0[oh], ow], t[h1[oh], ow], lh[oh]), 16 bytes a store
+  T* yb = y + static_cast<int64_t>(b) * a.OH * a.OW;
+  const int n = TH << a.tw;
+  for (int q = threadIdx.x; q < n; q += kTiledThreads) {
+    const int v = q & (TWV - 1);
+    const int r = q >> a.tw;
+    const int oh = oh_a + r;
+    const int ow = ow_a + v * V::kN;
+    if (oh >= a.OH || ow >= a.OW) continue;       // OW is whole vectors: all of it or none
+    const float lam = s_lh[r];
+    const float one_m = __fsub_rn(1.0f, lam);
+    float lo[V::kN], hi[V::kN], out[V::kN];
+    load_planes<V::kN>(ts, plane, (s_h0[r] << a.tw) + v, lo);
+    load_planes<V::kN>(ts, plane, (s_h1[r] << a.tw) + v, hi);
+#pragma unroll
+    for (int j = 0; j < V::kN; ++j)
+      out[j] = __fadd_rn(__fmul_rn(one_m, lo[j]), __fmul_rn(lam, hi[j]));
+    *reinterpret_cast<uint4*>(yb + static_cast<int64_t>(oh) * a.OW + ow) = V::pack(out);
+  }
+}
+
 // the grid of a tiled launch; false if the arguments cannot be launched
 inline bool tiled_grid(Tile* a, int rows, int cols, int vec, int smem_bytes, unsigned int* grid) {
   if (a->th < 0 || a->tw < 0 || a->lanes < 0 || a->lanes > 8 || a->th > 16 || a->tw > 16 ||
@@ -503,11 +664,14 @@ inline bool tiled_grid(Tile* a, int rows, int cols, int vec, int smem_bytes, uns
   return true;
 }
 
-// dynamic shared memory above 48 KB has to be allowed per kernel; a refusal is
-// returned like a launch error, and taken off the runtime's last-error slot so
-// that the next launch's check does not find it
+// dynamic shared memory above 48 KB has to be allowed per kernel (below, the
+// call is skipped: it is host time on every launch); a refusal is returned
+// like a launch error, and taken off the runtime's last-error slot so that
+// the next launch's check does not find it
 template <typename K>
 bool raise_smem_limit(K kernel, int smem_bytes, int* err) {
+  *err = 0;
+  if (smem_bytes <= 48 * 1024) return true;
   *err = static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
   if (*err != 0) cudaGetLastError();
@@ -540,6 +704,28 @@ int launch_bwd_tiled(const T* g, T* gx, const int* hptr, const int* hidx, const 
   resize_bwd_tiled_kernel<T>
       <<<grid, kTiledThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
           g, gx, hptr, hidx, hwt, wptr, widx, wwt, hspan, wspan, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_row(const T* x, T* y, const int* h0, const int* h1, const float* lh, const int* w0,
+               const int* w1, const float* lw, const int* hspan, const int* wspan, RowTile a, int C,
+               int smem_bytes, void* stream) {
+  constexpr int kN = Vec<T>::kN;
+  if (C != 1 || a.th < 0 || a.tw < 0 || a.th > 16 || a.tw > 16 || smem_bytes <= 0 ||
+      a.pitch <= 0 || a.pitch % kN != 0 || a.OW % kN != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles_h = (a.OH + (1 << a.th) - 1) >> a.th;
+  a.tiles_w = (a.OW / kN + (1 << a.tw) - 1) >> a.tw;
+  const int64_t blocks = static_cast<int64_t>(a.tiles_w) * a.tiles_h * a.B;
+  if (blocks <= 0 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (!raise_smem_limit(resize_row_kernel<T>, smem_bytes, &err)) return err;
+  const bool vec_in = a.W % kN == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  resize_row_kernel<T><<<static_cast<unsigned int>(blocks), kTiledThreads, smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(x, y, h0, h1, lh, w0, w1, lw, hspan,
+                                                              wspan, a, vec_in);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,6 +774,25 @@ int vaeunet_resize_bwd_bf16(const void* g, void* gx, const int* hptr, const int*
 }
 
 #undef TILE_ARGS
+
+// C must be 1; `tw` counts vectors (4 fp32 or 8 bf16 output columns), `pitch`
+// elements of a staged row.
+int vaeunet_resize_row_f32(const float* x, float* y, const int* h0, const int* h1,
+                           const float* lh, const int* w0, const int* w1, const float* lw,
+                           const int* hspan, const int* wspan, int B, int H, int W, int C, int OH,
+                           int OW, int th, int tw, int pitch, int smem_bytes, void* stream) {
+  return launch_row(x, y, h0, h1, lh, w0, w1, lw, hspan, wspan,
+                    RowTile{B, H, W, OH, OW, th, tw, pitch, 0, 0}, C, smem_bytes, stream);
+}
+
+int vaeunet_resize_row_bf16(const void* x, void* y, const int* h0, const int* h1, const float* lh,
+                            const int* w0, const int* w1, const float* lw, const int* hspan,
+                            const int* wspan, int B, int H, int W, int C, int OH, int OW, int th,
+                            int tw, int pitch, int smem_bytes, void* stream) {
+  return launch_row(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), h0, h1,
+                    lh, w0, w1, lw, hspan, wspan, RowTile{B, H, W, OH, OW, th, tw, pitch, 0, 0}, C,
+                    smem_bytes, stream);
+}
 
 int vaeunet_resize_scalar_f32(const float* x, float* y, const int* h0, const int* h1, const float* lh,
                        const int* w0, const int* w1, const float* lw, int B, int H, int W, int C,

@@ -44,7 +44,9 @@ _F = ctypes.c_float
 _RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]              # the scalar route
 _RESIZE_TILED_ARGS = [_P] * 10 + [_I] * 10 + [_P]      # + spans; tile, lanes, shared memory
 _RESIZE_BWD_TILED_ARGS = [_P] * 10 + [_I] * 12 + [_P]  # + the most pairs of a tile
+_RESIZE_ROW_ARGS = [_P] * 10 + [_I] * 10 + [_P]         # + spans; tile, row pitch, shared memory
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
+_CONV_F32_ARGS = [_P] * 7 + [_I] * 8 + [_P]            # + the padded Ci and Co of the weights
 
 # library -> {C function: argtypes}; every function returns int (cudaError_t)
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -59,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "resize": {
         "vaeunet_resize_f32": _RESIZE_TILED_ARGS,
         "vaeunet_resize_bf16": _RESIZE_TILED_ARGS,
+        "vaeunet_resize_row_f32": _RESIZE_ROW_ARGS,
+        "vaeunet_resize_row_bf16": _RESIZE_ROW_ARGS,
         "vaeunet_resize_bwd_f32": _RESIZE_BWD_TILED_ARGS,
         "vaeunet_resize_bwd_bf16": _RESIZE_BWD_TILED_ARGS,
         "vaeunet_resize_scalar_f32": _RESIZE_ARGS,
@@ -67,14 +71,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_resize_bwd_scalar_bf16": _RESIZE_ARGS,
     },
     "conv_bn_stats": {
-        "vaeunet_conv3x3_stats_f32": _CONV_ARGS,
+        "vaeunet_conv3x3_stats_f32": _CONV_F32_ARGS,
         "vaeunet_conv3x3_stats_bf16_wgmma": _CONV_ARGS,
     },
 }
 
-# kernel -> launches since the last reset
+# kernel -> launches since the last reset.  "resize" and "conv_bn_stats" count
+# their wrapper's launches on any route; "resize_row" and "conv_bn_stats_fp32"
+# those of them that took the row kernel and the fp32 kernel.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
-                            "resize_bwd": 0, "conv_bn_stats": 0}
+                            "resize_row": 0, "resize_bwd": 0, "conv_bn_stats": 0,
+                            "conv_bn_stats_fp32": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # C function -> the bound ctypes function (the names are unique across libraries)

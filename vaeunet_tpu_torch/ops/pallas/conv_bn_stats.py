@@ -18,9 +18,21 @@ K = 9 taps x Ci.  Its bound is the operations, 2 B H W Ci Co 9 over the
 = kx * 3 + ky (:func:`weights_k_major`), and TMA needs 16-byte strides, so
 where Ci is not a multiple of 8 the wrapper zero-pads the channels of x and
 w to the next one (:func:`pad_channels`); zero channels add nothing to y or
-the moments.  fp32 takes the SIMT kernel with HWIO weights.  Both write one
-row of partial moments per 8 x 16 tile (:func:`scratch_rows`), reduced in a
-fixed order.
+the moments.
+
+fp32 (what ``TrainConfig.amp = False`` trains with, and what holds the card
+against the CPU to 1e-5) is a register-tiled SIMT kernel with true fp32
+FMAs, bound by the 67 TFLOP/s of the fp32 pipes: 128 threads make a tile's
+128 pixels x 64 output channels, 8 columns x 8 channels a thread, from a
+ring of ``F32_STAGES`` shared-memory stages that ``cp.async`` fills with
+``F32_CHUNK`` input channels of the (8+2) x (16+2) patch and of the weights
+while the stage before is multiplied (:func:`fp32_smem_bytes` mirrors the
+layout).  It takes the weights tap-major, [9, ci_pad, co_pad] with tap =
+ky * 3 + kx and zeros beyond Ci and Co (:func:`weights_tap_major`), so the
+weight copies need no guard.
+
+Both write one row of partial moments per 8 x 16 tile
+(:func:`scratch_rows`), reduced in a fixed order.
 
 The backward follows ``_bwd``: the moment cotangents fold into the output
 cotangent, g = gy + gs + 2 y gq in fp32 (plain torch; a missing cotangent
@@ -46,6 +58,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 TILE_H, TILE_W = 8, 16
 # channel multiple of the bf16 kernel's x and w: 16-byte TMA strides
 CI_ALIGN = 8
+# the fp32 kernel of csrc/conv_bn_stats.cu: input channels a stage, stages of
+# its ring, output channels a block (kF32Chunk, kF32Stages, kF32BN)
+F32_CHUNK, F32_STAGES, F32_BLOCK_CO = 8, 3, 64
+# the padding of its weights: any chunk the kernel may be built with divides
+# F32_CI_ALIGN; the step's channel counts are multiples of both already
+F32_CI_ALIGN, F32_CO_ALIGN = 32, F32_BLOCK_CO
 
 
 def conv3x3_bn_stats_plain(x: torch.Tensor, weight: torch.Tensor
@@ -97,6 +115,31 @@ def weights_k_major(weight: torch.Tensor, ci: int) -> torch.Tensor:
     return w.reshape(9, co, ci).contiguous()
 
 
+def weights_tap_major(weight: torch.Tensor, ci: int, co: int) -> torch.Tensor:
+    """OIHW [Co, Ci, 3, 3] -> contiguous [9, ci, co], tap = ky * 3 + kx, the
+    output channel fastest, zeros beyond Ci and Co."""
+    co0, ci0 = weight.shape[:2]
+    w = weight.permute(2, 3, 1, 0).reshape(9, ci0, co0)
+    if (ci, co) == (ci0, co0):
+        return w.contiguous()
+    out = weight.new_zeros((9, ci, co))
+    out[:, :ci0, :co0] = w
+    return out
+
+
+def fp32_smem_bytes(chunk: int = F32_CHUNK, stages: int = F32_STAGES) -> int:
+    """Shared memory of one block of the fp32 kernel, as
+    ``csrc/conv_bn_stats.cu`` lays it out: per stage the (TILE_H + 2) rows
+    of the patch, each (TILE_W + 2) pixels of `chunk` channels plus 4 floats
+    of pitch, and the 9 x chunk x F32_BLOCK_CO weights."""
+    patch = (TILE_H + 2) * ((TILE_W + 2) * chunk + 4)
+    return 4 * stages * (patch + 9 * chunk * F32_BLOCK_CO)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
     """The launch; few tensor ops, since each costs host time on every call."""
     b, ci, h, w = x.shape
@@ -106,14 +149,15 @@ def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
     if y.numel() == 0:
         return y, torch.zeros(co, device=dev), torch.zeros(co, device=dev)
     if x.dtype == torch.bfloat16:
-        ci_k = -(-ci // CI_ALIGN) * CI_ALIGN
+        ci_k = _round_up(ci, CI_ALIGN)
         xk = x if ci_k == ci and x.data_ptr() % 16 == 0 else pad_channels(x, ci_k)
         wk = weights_k_major(weight, ci_k)
-        fn = "vaeunet_conv3x3_stats_bf16_wgmma"
+        fn, dims = "vaeunet_conv3x3_stats_bf16_wgmma", (ci_k, co)
     else:
-        ci_k, xk = ci, x
-        wk = weight.permute(2, 3, 1, 0).contiguous()
-        fn = "vaeunet_conv3x3_stats_f32"
+        xk = x
+        pads = (_round_up(ci, F32_CI_ALIGN), _round_up(co, F32_CO_ALIGN))
+        wk = weights_tap_major(weight, *pads)
+        fn, dims = "vaeunet_conv3x3_stats_f32", (ci, co, *pads)
     tiles = scratch_rows(b, h, w)
     # s, q and the two [tiles, Co] scratch halves in one allocation; the
     # reduce kernel writes every element of s and q
@@ -121,8 +165,10 @@ def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
     s, q = buf[:co], buf[co:2 * co]
     p = buf.data_ptr() + 8 * co
     _ext.call("conv_bn_stats", fn, dev, xk.data_ptr(), wk.data_ptr(), y.data_ptr(),
-              p, p + 4 * tiles * co, s.data_ptr(), q.data_ptr(), b, h, w, ci_k, co, tiles)
+              p, p + 4 * tiles * co, s.data_ptr(), q.data_ptr(), b, h, w, *dims, tiles)
     _ext.count_launch("conv_bn_stats")
+    if x.dtype == torch.float32:
+        _ext.count_launch("conv_bn_stats_fp32")
     return y, s, q
 
 

@@ -16,7 +16,7 @@ second kernel, gx = M^T g, a gather over the transposed tables of
 :func:`transpose_table`.  On the CPU the plain forward is differentiable by
 itself, and :func:`resize_backward_plain` spells out the same gradient.
 
-Two routes on the card, chosen from the shape alone (:func:`plan_forward`,
+Three routes on the card, chosen from the shape alone (:func:`plan_forward`,
 :func:`plan_backward`):
 
 * ``tiled``: a pixel's channels are a whole number of 16-byte vectors
@@ -31,8 +31,24 @@ Two routes on the card, chosen from the shape alone (:func:`plan_forward`,
   many vectors to make), and is halved along the axis with the longer span
   until the block's shared memory fits ``SMEM_BUDGET`` (a downsample's
   spans are long).
-* ``scalar``: every other shape (the logits resize has C = 1) takes the
+* ``row`` (forward only): C = 1, the logits resize, whose NHWC rows are
+  contiguous along W; the output row is a whole number of 16-byte vectors
+  (OW a multiple of 4 in fp32, of 8 in bf16) and both tensors start on a
+  16-byte address.  The same three stages with W in the role the channels
+  had: a block owns ``ROW_TILE`` output rows x columns, stages its source
+  span (the first column rounded down to a vector), blends W once per span
+  row into the fp32 buffer, a thread making one vector of neighbouring
+  outputs, and H from it with one 16-byte store a thread
+  (:func:`row_smem_bytes` mirrors the layout).
+* ``scalar``: every other shape (C = 3, a bf16 C = 4, an output row off a
+  vector, a tensor off a 16-byte address, the backward at C = 1) takes the
   one-element-per-thread kernels, which read through the caches.
+
+All routes do the same arithmetic in the same order and give the same bits.
+Outside a recorded graph (no grad mode, or an input that does not require
+grad) :func:`resize` launches the kernel directly; under autograd it goes
+through the Function, and either way the launch's arguments come from a
+per-shape cache keyed on cheap values.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ FORWARD_TILE = (16, 8)         # output rows x columns of a block
 FORWARD_LANES = 16             # 16-byte vectors of a pixel a block takes: 256 bytes
 BACKWARD_TILE = (4, 16)        # input rows x columns of a block
 BACKWARD_CHANNELS = 32         # channels a block takes: its fp32 buffer is as large in bf16
+ROW_TILE = (32, 256)           # the row route: output rows x columns of a block
 MAX_BLOCKS = 2 ** 31 - 1       # gridDim.x
 
 
@@ -207,10 +224,10 @@ def backward_spans(ptr: np.ndarray, idx: np.ndarray, tile: int) -> Tuple[np.ndar
 
 class TilePlan(NamedTuple):
     """How one resize (or its gradient) runs on the card."""
-    route: str          # "tiled" or "scalar"
+    route: str          # "tiled", "row" or "scalar"
     tile_h: int = 0     # rows and columns of the result a block owns (powers of two)
     tile_w: int = 0
-    lanes: int = 0      # 16-byte channel vectors of a pixel a block takes (a power of two)
+    lanes: int = 0      # 16-byte channel vectors of a pixel a block takes (a power of two); row: 0
     chunks: int = 0     # blocks along the channels: ceil(vectors / lanes)
     span_h: int = 0     # the longest source span of a tile, rows and columns
     span_w: int = 0
@@ -243,6 +260,54 @@ def tiled_smem_bytes(backward: bool, tile_h: int, tile_w: int, lanes: int, span_
     return tables + VEC_BYTES * lanes * (span_h * span_w + planes * inner)
 
 
+def row_pitch(span_w: int, elem_size: int) -> int:
+    """Elements of one staged row of the row route: the span, after its
+    first column is rounded down to a 16-byte vector and its end up."""
+    vec = VEC_BYTES // elem_size
+    return -(-(span_w + vec - 1) // vec) * vec
+
+
+def row_smem_bytes(tile_h: int, tile_w: int, span_h: int, span_w: int, elem_size: int) -> int:
+    """Shared memory of one block of the row route, as ``csrc/resize.cu``
+    lays it out: the tile's tables (`tile_w` counts columns), the staged
+    span in the tensor's type, and the fp32 buffer of the W blend."""
+    tables = _round16(12 * (tile_h + tile_w))
+    return (tables + _round16(span_h * row_pitch(span_w, elem_size) * elem_size)
+            + 4 * span_h * tile_w)
+
+
+def _plan_row(in_hw: Tuple[int, int], out_hw: Tuple[int, int], elem_size: int,
+              align_corners: bool, batch: int, tile: Optional[Tuple[int, int]]) -> TilePlan:
+    """The row route's tile: ``ROW_TILE`` (or `tile`) capped by the output,
+    its columns a power of two of vectors, halved along the longer span
+    until the block fits the budget."""
+    vec = VEC_BYTES // elem_size
+    fixed = tile is not None
+    t = list(tile if fixed else ROW_TILE)
+    if not fixed:
+        t = [min(t[0], _pow2_at_least(out_hw[0])),
+             max(vec, min(t[1], vec * _pow2_at_least(out_hw[1] // vec)))]
+
+    def sized(t):
+        sh = _axis_spans(False, in_hw[0], out_hw[0], align_corners, t[0])[0]
+        sw = _axis_spans(False, in_hw[1], out_hw[1], align_corners, t[1])[0]
+        span = (int(sh[:, 1].max()), int(sw[:, 1].max()))
+        return span, row_smem_bytes(t[0], t[1], *span, elem_size)
+
+    span, smem = sized(t)
+    while not fixed and smem > SMEM_BUDGET and t != [1, vec]:
+        shrink = 0 if (span[0] >= span[1] and t[0] > 1) or t[1] == vec else 1
+        t[shrink] //= 2
+        span, smem = sized(t)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"resize: a {t[0]}x{t[1]} row tile needs {smem} bytes of shared "
+                         f"memory, over the card's {SMEM_LIMIT}")
+    blocks = -(-out_hw[0] // t[0]) * -(-out_hw[1] // t[1]) * batch
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"resize: {blocks} blocks exceed the grid's {MAX_BLOCKS}")
+    return TilePlan("row", t[0], t[1], 0, 1, span[0], span[1], 0, 0, smem, blocks)
+
+
 def _axis_spans(backward: bool, in_size: int, out_size: int, align_corners: bool, tile: int):
     if backward:
         ptr, idx, _ = transpose_table(in_size, out_size, align_corners)
@@ -255,6 +320,8 @@ def _axis_spans(backward: bool, in_size: int, out_size: int, align_corners: bool
 def _plan(backward: bool, in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int,
           elem_size: int, align_corners: bool, batch: int,
           tile: Optional[Tuple[int, int]], lanes: Optional[int]) -> TilePlan:
+    if channels == 1 and not backward and (out_hw[1] * elem_size) % VEC_BYTES == 0:
+        return _plan_row(in_hw, out_hw, elem_size, align_corners, batch, tile)
     if (channels * elem_size) % VEC_BYTES:
         return TilePlan("scalar")
     vecs = channels * elem_size // VEC_BYTES
@@ -298,7 +365,8 @@ def plan_forward(in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int,
                  lanes: Optional[int] = None) -> TilePlan:
     """The route and tile of ``resize`` for x [batch, channels, *in_hw] of
     `elem_size` bytes an element.  `tile` (output rows, columns; powers of
-    two) and `lanes` fix what the rule would choose (for tuning)."""
+    two; on the row route the columns are a power of two of vectors) and
+    `lanes` fix what the rule would choose (for tuning)."""
     return _plan(False, tuple(in_hw), tuple(out_hw), channels, elem_size, bool(align_corners),
                  batch, tile, lanes)
 
@@ -330,55 +398,71 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("resize expects a channels_last-contiguous tensor")
 
 
-def _suffix(t: torch.Tensor) -> str:
-    return "f32" if t.dtype == torch.float32 else "bf16"
-
-
-@functools.lru_cache(maxsize=512)
 def _launch_setup(backward: bool, shape: Tuple[int, int, int, int], out_hw: Tuple[int, int],
-                  align_corners: bool, elem_size: int, device: str, scalar: bool,
+                  align_corners: bool, dtype: torch.dtype, device: torch.device, scalar: bool,
                   plan: Optional[TilePlan]):
-    """Everything of a launch that the shape decides: -> (C entry's name
-    without the type, the arguments after the two tensors, the device
-    tables those point into, kept alive with this entry).  `shape` is the
-    resize's input [B, C, H, W] (backward: gx's), `out_hw` its output's
-    (backward: g's)."""
+    """Everything of a launch that the shape decides: -> (the C entry's
+    name, the arguments after the two tensors, the device tables those
+    point into, kept alive with this entry).  `shape` is the resize's input
+    [B, C, H, W] (backward: gx's), `out_hw` its output's (backward: g's)."""
     b, c, h, w = shape
     oh, ow = out_hw
+    elem_size = 4 if dtype == torch.float32 else 2
     if plan is None:
         plan = _plan(backward, (h, w), (oh, ow), c, elem_size, align_corners, b, None, None)
     if scalar:
         plan = TilePlan("scalar")
+    dev = str(device)
     table = _device_transpose_table if backward else _device_table
-    keep = [*table(h, oh, align_corners, device), *table(w, ow, align_corners, device)]
+    keep = [*table(h, oh, align_corners, dev), *table(w, ow, align_corners, dev)]
     name = "vaeunet_resize_bwd" if backward else "vaeunet_resize"
     tail: Tuple[int, ...] = ()
-    if plan.route == "tiled":
-        keep += [_device_spans(backward, h, oh, align_corners, plan.tile_h, device),
-                 _device_spans(backward, w, ow, align_corners, plan.tile_w, device)]
-        tail = (plan.tile_h.bit_length() - 1, plan.tile_w.bit_length() - 1,
-                plan.lanes.bit_length() - 1)
-        if backward:
-            tail += (plan.nnz_h, plan.nnz_w)
-        tail += (plan.smem_bytes,)
-    else:
+    if plan.route == "scalar":
         name += "_scalar"
+    else:
+        keep += [_device_spans(backward, h, oh, align_corners, plan.tile_h, dev),
+                 _device_spans(backward, w, ow, align_corners, plan.tile_w, dev)]
+        if plan.route == "row":
+            name += "_row"
+            vec = VEC_BYTES // elem_size
+            tail = (plan.tile_h.bit_length() - 1, (plan.tile_w // vec).bit_length() - 1,
+                    row_pitch(plan.span_w, elem_size))
+        else:
+            tail = (plan.tile_h.bit_length() - 1, plan.tile_w.bit_length() - 1,
+                    plan.lanes.bit_length() - 1)
+            if backward:
+                tail += (plan.nnz_h, plan.nnz_w)
+        tail += (plan.smem_bytes,)
+    name += "_f32" if dtype == torch.float32 else "_bf16"
     return name, (*(t.data_ptr() for t in keep), b, h, w, c, oh, ow, *tail), keep
+
+
+# launch key -> _launch_setup's result.  The key is made of values a call
+# has at hand (sizes, the dtype, the device's index): the lookup is on every
+# launch's path.
+_SETUPS: dict = {}
+_SETUPS_MOST = 1024
 
 
 def launch_args(src: torch.Tensor, dst: torch.Tensor, align_corners: bool,
                 backward: bool = False, plan: Optional[TilePlan] = None, scalar: bool = False):
     """(C entry, arguments) of one launch from `src` into `dst`, both
-    channels_last: x into y, or with `backward` g into gx.  The tiled route
-    also needs both on 16-byte addresses.  `plan` fixes a tiled plan and
+    channels_last: x into y, or with `backward` g into gx.  The tiled and
+    row routes also need both on 16-byte addresses.  `plan` fixes a plan and
     `scalar` the scalar route (for tuning and for holding one against the
     other)."""
-    shape, out_hw = (dst.shape, src.shape[2:]) if backward else (src.shape, dst.shape[2:])
     src_ptr, dst_ptr = src.data_ptr(), dst.data_ptr()
-    name, args, _ = _launch_setup(backward, tuple(shape), tuple(out_hw), bool(align_corners),
-                                  src.element_size(), str(src.device),
-                                  scalar or (src_ptr | dst_ptr) % VEC_BYTES != 0, plan)
-    return f"{name}_{_suffix(src)}", (src_ptr, dst_ptr, *args)
+    device = src.device
+    key = (backward, src.shape, dst.shape, align_corners, src.dtype, device.index,
+           scalar or (src_ptr | dst_ptr) % VEC_BYTES != 0, plan)
+    hit = _SETUPS.get(key)
+    if hit is None:
+        if len(_SETUPS) >= _SETUPS_MOST:
+            _SETUPS.clear()
+        shape, out_hw = (dst.shape, src.shape[2:]) if backward else (src.shape, dst.shape[2:])
+        hit = _SETUPS[key] = _launch_setup(backward, tuple(shape), tuple(out_hw),
+                                           bool(align_corners), src.dtype, device, key[6], plan)
+    return hit[0], (src_ptr, dst_ptr, *hit[1])
 
 
 def _resize_cuda(x: torch.Tensor, oh: int, ow: int, align_corners: bool) -> torch.Tensor:
@@ -389,6 +473,8 @@ def _resize_cuda(x: torch.Tensor, oh: int, ow: int, align_corners: bool) -> torc
     fn, args = launch_args(x, y, align_corners)
     _ext.call("resize", fn, x.device, *args)
     _ext.count_launch("resize")
+    if "_row_" in fn:
+        _ext.count_launch("resize_row")
     return y
 
 
@@ -430,9 +516,21 @@ class _ResizeCuda(torch.autograd.Function):
         return resize_backward(g, ctx.in_hw, ctx.align_corners), None, None, None
 
 
+def _launch_or_record(x: torch.Tensor, oh: int, ow: int, align_corners: bool) -> torch.Tensor:
+    """The kernel's launch alone where no graph is being recorded (the
+    serving path, an eval step); else through the Function, whose host work
+    is several times the launch's."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeCuda.apply(x, oh, ow, align_corners)
+    return _resize_cuda(x, oh, ow, align_corners)
+
+
 def resize(x: torch.Tensor, out_hw: Tuple[int, int], align_corners: bool) -> torch.Tensor:
     """Bilinear resize of a channels_last NCHW tensor to `out_hw`;
-    differentiable with respect to `x` on both devices."""
+    differentiable with respect to `x` on both devices.  On the card the
+    kernel is launched directly where no graph is being recorded, and
+    through the autograd Function (the backward kernel as its gradient)
+    where one is."""
     _check(x)
     b, c, h, w = x.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
@@ -442,7 +540,7 @@ def resize(x: torch.Tensor, out_hw: Tuple[int, int], align_corners: bool) -> tor
         return resize_plain(x, (oh, ow), align_corners)
     if x.device.type != "cuda":
         raise ValueError(f"resize: unsupported device {x.device}")
-    return _ResizeCuda.apply(x, oh, ow, align_corners)
+    return _launch_or_record(x, oh, ow, align_corners)
 
 
 def resize_h(x: torch.Tensor, out_size: int, align_corners: bool = True) -> torch.Tensor:

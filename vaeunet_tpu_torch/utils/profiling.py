@@ -4,10 +4,12 @@ context manager around ``jax.profiler``), here over ``torch.profiler``.
 
     python -m vaeunet_tpu_torch.utils.profiling            # one request
     python -m vaeunet_tpu_torch.utils.profiling --train    # one train step
+    python -m vaeunet_tpu_torch.utils.profiling --train --fp32   # ... with amp=False
 
 runs, after a warm-up, one N-sample uncertainty request (the
 full-resolution tiled request of ``chip_smoke.py``), or one warm training
-step (the 512^2 batch-16 bf16 step of ``chip_smoke.py`` phase 6), under
+step (the 512^2 batch-16 bf16 step of ``chip_smoke.py`` phase 6, or with
+``--fp32`` its fp32 form with TF32 off, phase 7), under
 ``torch.profiler`` on the card and prints the device time by kernel family
 and the top kernels, the wall time, and the device's idle share (1 - summed
 kernel time / wall time; one stream, so kernels do not overlap).  Needs a
@@ -25,15 +27,17 @@ from typing import Callable, Dict
 import torch
 
 from vaeunet_tpu_torch import build_model, segmentation_distribution, uncertainty_maps
+from vaeunet_tpu_torch import use_fp32_numerics
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
-    ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_kernel", "conv3x3_stats_wgmma_kernel",
+    ("conv_bn_stats (this port's kernel)", ("conv3x3_stats_f32_kernel",
+                                            "conv3x3_stats_wgmma_kernel",
                                             "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
     ("resize_bwd (this port's kernel)", ("resize_bwd_tiled_kernel", "resize_bilinear_bwd_kernel")),
-    ("resize", ("resize_tiled_kernel", "resize_bilinear_kernel")),
+    ("resize", ("resize_tiled_kernel", "resize_row_kernel", "resize_bilinear_kernel")),
     ("normal/reparam", ("normal_kernel", "reparam_kernel")),
     ("optimizer (foreach AdamW, clip)", ("multi_tensor_apply", "adam")),
     ("batch_norm (gate, residual)", ("batch_norm", "bn_fw_inf")),
@@ -97,9 +101,9 @@ def serving_request() -> Callable[[], None]:
     return request
 
 
-def train_step() -> Callable[[], None]:
+def train_step(amp: bool = True) -> Callable[[], None]:
     config = TrainConfig(model_type="resnet", batch_size=16, gradient_accumulation_steps=1,
-                         amp=True, patch_size=512, learning_rate=1e-4)
+                         amp=amp, patch_size=512, learning_rate=1e-4)
     state = create_train_state(config, seed=0, device="cuda")
     step = make_train_step(config, state.model)
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -117,15 +121,22 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--train", action="store_true",
                         help="profile one warm 512^2 batch-16 bf16 training step")
+    parser.add_argument("--fp32", action="store_true",
+                        help="with --train: amp=False and TF32 off, the fp32 conv kernel's path")
     args = parser.parse_args()
+    if args.fp32 and not args.train:
+        parser.error("--fp32 goes with --train (the request is fp32 already)")
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
-    fn = train_step() if args.train else serving_request()
+    if args.fp32:
+        use_fp32_numerics()
+    fn = train_step(amp=not args.fp32) if args.train else serving_request()
     fn()                                           # warm-up: library load, cuDNN plans
     if args.train:
         fn()
     out = device_breakdown(fn)
-    what = "bf16 train step, 512^2 batch 16" if args.train else "fp32 request, TF32 off"
+    what = ("fp32 train step (TF32 off), 512^2 batch 16" if args.fp32 else
+            "bf16 train step, 512^2 batch 16" if args.train else "fp32 request, TF32 off")
     print(f"device: {torch.cuda.get_device_name(0)}  ({what})")
     print(f"wall {out['wall_s']:.3f} s  device busy {out['device_s']:.3f} s  "
           f"idle share {out['idle_share']:.3f}")

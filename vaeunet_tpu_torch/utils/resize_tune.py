@@ -1,6 +1,6 @@
-"""Time the tiled resize kernels over tiles and lanes on the card.
+"""Time the tiled and row resize kernels over tiles and lanes on the card.
 
-    python -m vaeunet_tpu_torch.utils.resize_tune [--quick]
+    python -m vaeunet_tpu_torch.utils.resize_tune [--quick] [--row]
 
 New in the port: the numbers behind the tile rule of
 ``ops/pallas/resize_mm.py`` (``FORWARD_TILE``, ``FORWARD_LANES``,
@@ -10,7 +10,10 @@ launches the tiled kernel with every candidate (tile rows x columns, lanes)
 that fits the card's shared memory, holds each result bit for bit against
 the rule's own plan, and prints the launch's device time (CUDA events, the
 launch alone on prepared tensors) beside the one-element-per-thread kernel's
-and the bytes bound.  Needs a CUDA card.
+and the bytes bound.  For the logits resize (C = 1, 256^2 -> 512^2) it
+sweeps the row route's tile (output rows x columns) the same way, beside
+the scalar kernel and ``F.interpolate``; ``--row`` runs only that sweep.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ from __future__ import annotations
 import argparse
 import itertools
 import subprocess
+import time
 
 import torch
+import torch.nn.functional as F
 
 from vaeunet_tpu_torch.ops import _ext
 from vaeunet_tpu_torch.ops.pallas import resize_mm
@@ -32,6 +37,9 @@ FORWARD_TILES = ((8, 16), (16, 8), (16, 16), (8, 8), (16, 4), (32, 4), (32, 8), 
 BACKWARD_TILES = ((4, 8), (8, 4), (8, 8), (2, 8), (2, 16), (2, 32), (4, 4), (4, 16), (4, 32),
                   (8, 16), (16, 8), (16, 16))
 LANES = (2, 4, 8, 16, 32)
+ROW_TILES = tuple(itertools.product((2, 4, 8, 16, 32), (32, 64, 128, 256, 512)))
+# (batch, type) of the logits resize: the request's, the bf16 step's, the fp32 step's
+ROW_CASES = ((8, torch.float32), (16, torch.bfloat16), (16, torch.float32))
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -46,6 +54,36 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, launches: int = 50, replays: int = 20) -> float:
+    """Device time of one fn(): `launches` of them captured in a CUDA graph
+    and replayed, so that no host work sits between two launches (at a few
+    microseconds a kernel the host cannot enqueue as fast as the card runs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, replays) / launches
+
+
+def host_us(fn, iters: int = 3000) -> float:
+    """Host time of one fn() in microseconds: the host clock over `iters`
+    calls that the device keeps up with (a synchronise before and after)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
 
 
 def launcher(src, dst, backward: bool, plan=None, scalar: bool = False):
@@ -97,6 +135,64 @@ def sweep(batch: int, dtype: torch.dtype, channels: int, size: int, backward: bo
               f"{'  *' if ms == best else ''}")
 
 
+def sweep_row(batch: int, dtype: torch.dtype, size: int, quick: bool) -> None:
+    """The row route's tiles at x [batch, 1, size, size] -> (2 size)^2."""
+    g = torch.Generator(device="cuda").manual_seed(size)
+    x = torch.randn((batch, 1, size, size), device="cuda", generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    y = torch.empty((batch, 1, 2 * size, 2 * size), device="cuda", dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    nbytes = (x.numel() + y.numel()) * x.element_size()
+    hw = ((size, size), (2 * size, 2 * size))
+    rule = resize_mm.plan_forward(*hw, 1, x.element_size(), True, batch)
+    check(rule.route == "row", f"the rule sends C = 1 to {rule.route}")
+    launcher(x, y, False)()
+    want = y.clone()
+    iters = 500
+
+    def library():
+        return F.interpolate(x, size=hw[1], mode="bilinear", align_corners=True)
+    rows = [("scalar", time_ms(launcher(x, y, False, scalar=True), iters), 0)]
+    check(torch.equal(y, want), "the scalar kernel differs from the rule's plan")
+    rows.append(("F.interpolate", time_ms(library, iters), 0))
+    on_device = {"scalar": device_ms(launcher(x, y, False, scalar=True)),
+                 "F.interpolate": device_ms(library),
+                 "row, the rule's tile": device_ms(launcher(x, y, False))}
+    vec = 16 // x.element_size()
+    for tile in ((rule.tile_h, rule.tile_w),) if quick else ROW_TILES:
+        if tile[1] < vec:
+            continue
+        try:
+            plan = resize_mm.plan_forward(*hw, 1, x.element_size(), True, batch, tile)
+        except ValueError:      # over the card's shared memory
+            continue
+        y.zero_()
+        fn = launcher(x, y, False, plan)
+        fn()
+        check(torch.equal(y, want), f"row tile {tile} differs from the rule's plan")
+        mark = " <- rule" if plan[:3] == rule[:3] else ""
+        rows.append((f"row {tile[0]}x{tile[1]}{mark}", time_ms(fn, iters), plan.smem_bytes))
+    print(f"fwd {str(dtype)[6:]} {list(x.shape)}->{2 * size}^2: {nbytes / 1e6:.1f} MB, "
+          f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    best = min(r[1] for r in rows[2:])
+    for name, ms, smem in rows:
+        print(f"    {name:22s} {ms:8.4f} ms  {nbytes / ms / 1e9:6.3f} TB/s  smem {smem:6d}"
+              f"{'  *' if ms == best else ''}")
+    print("    on the device alone (a CUDA graph of 50 launches, replayed): "
+          + "  ".join(f"{k} {v:.4f} ms" for k, v in on_device.items()))
+    # what one wrapped call costs the host, piece by piece
+    leaf = x.clone().requires_grad_()
+    parts = {"resize()": lambda: resize_mm.resize(x, hw[1], True),
+             "resize() recording a graph": lambda: resize_mm.resize(leaf, hw[1], True),
+             "torch.empty of y": lambda: torch.empty(y.shape, dtype=dtype, device=x.device,
+                                                     memory_format=torch.channels_last),
+             "launch_args": lambda: resize_mm.launch_args(x, y, True),
+             "_ext.call": launcher(x, y, False),
+             "F.interpolate": library}
+    print("    host time of one call: "
+          + "  ".join(f"{k} {host_us(fn):.1f} us" for k, fn in parts.items()))
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -106,6 +202,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--quick", action="store_true",
                         help="only the rule's tile at each shape (every lane count)")
+    parser.add_argument("--row", action="store_true",
+                        help="only the row route's sweep at the logits resize")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("resize_tune: no CUDA device is available")
@@ -115,8 +213,12 @@ def main() -> None:
     for line in _ext.build(["resize"])["resize"]["ptxas"]:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  {line.strip()}")
+    for batch, dtype in ROW_CASES:
+        sweep_row(batch, dtype, 256, args.quick)
+    if args.row:
+        return
     for backward in (False, True):
-        for batch, dtype in ((8, torch.float32), (16, torch.bfloat16), (16, torch.float32)):
+        for batch, dtype in ROW_CASES:
             for channels, size in LAYERS:
                 sweep(batch, dtype, channels, size, backward, args.quick)
 
