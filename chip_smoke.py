@@ -36,7 +36,25 @@ the card, in phases that each fail the run with a non-zero exit:
    128^2, batch 2, accumulation 2, on the card and on the CPU from the same
    weights, batch and noise: loss atol 1e-5, running statistics atol 1e-4
    + rtol 1e-3, parameters atol 2 lr (+ 1e-6 for the fp32 rounding of
-   p +- lr).
+   p +- lr);
+9. the plain UNet's request (``UNet(3, 1, bilinear=False)``, the top-level
+   predict.py's default): 3 requests on a 1424x2144 image (a fundus at
+   --scale 0.5), ``predict_image``, the probabilities resized back to
+   2848x4288 (align_corners=False), the threshold; launch counts held; then
+   the card against the CPU at 3x256x256, both ``bilinear`` settings;
+10. the plain UNet's 512^2 batch-16 bf16 step, both ``bilinear`` settings:
+   every parameter moves, 3 warm and 5 timed steps with their launch
+   counts, one eval step, one fp32 step card vs CPU at 128^2;
+11. the same for the resnet50 VAE-UNet with deep supervision;
+12. remat: one fp32 resnet34 step at 256^2 batch 4 without remat, with
+   'full' and with 'save_convs': the same loss, BN statistics and
+   gradient, BN statistics moved once, less memory with 'full'.
+
+Phase 3 also holds the conv kernel in both types at every conv shape of the
+paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
+each path's sum of launches x ms against its bound), and the one-channel
+resizes of those paths (the mask downsamples by 4, 8 and 16 and the
+request's upscale) bit for bit.
 
 Serving and every comparison run in full fp32 (TF32 off for cuDNN
 convolutions and matmuls); the training step of phase 6 in bf16.  The last
@@ -59,7 +77,9 @@ import torch.nn.functional as F
 from vaeunet_tpu_torch import build_model, predict_image, segmentation_distribution
 from vaeunet_tpu_torch import uncertainty_maps, use_fp32_numerics
 from vaeunet_tpu_torch.inference.tiled import compute_tile_grid
+from vaeunet_tpu_torch.models import build_unet
 from vaeunet_tpu_torch.ops import _ext
+from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
 from vaeunet_tpu_torch.ops.pallas import conv_bn_stats as conv_mod
 from vaeunet_tpu_torch.ops.pallas import reparam as reparam_mod
@@ -70,6 +90,9 @@ from vaeunet_tpu_torch.training import (
     make_eval_step,
     make_train_step,
 )
+from vaeunet_tpu_torch.losses import make_criterion
+from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
+from vaeunet_tpu_torch.vae_utils import to_nchw
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -338,6 +361,45 @@ def kernel_resize(table: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# one-channel resizes with align_corners=False on the new paths: the
+# resnet50 step's three mask downsamples for deep supervision, and the
+# plain UNet request's probability upscale to the full fundus
+C1_PATH_RESIZES = (((16, 1, 512, 512), (128, 128)), ((16, 1, 512, 512), (64, 64)),
+                   ((16, 1, 512, 512), (32, 32)), ((1, 1, 1424, 2144), (2848, 4288)))
+
+
+def kernel_resize_c1_paths(table: dict) -> None:
+    """The row kernel, the scalar kernel and the plain version bit for bit
+    at each shape, the route and tile the plan picks, and the launch alone
+    beside F.interpolate."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for shape, out in C1_PATH_RESIZES:
+        x = torch.rand(shape, device="cuda", generator=g).contiguous(
+            memory_format=torch.channels_last)
+        plan = resize_mm.plan_forward(shape[2:], out, 1, 4, False, shape[0])
+        y = resize_mm.resize(x, out, False)
+        ref = resize_mm.resize_plain(x, out, False)
+        other = torch.empty_like(y)
+        fn, args = resize_mm.launch_args(x, other, False, scalar=True)
+        _ext.call("resize", fn, x.device, *args)
+        torch.cuda.synchronize()
+        name = f"resize {list(shape)}->{list(out)} fp32 ac=False"
+        check("_row_" in resize_mm.launch_args(x, y, False)[0], f"{name}: not the row kernel")
+        check(torch.equal(y, ref), f"{name}: the row kernel and the plain version differ")
+        check(torch.equal(y, other), f"{name}: the row and the scalar kernels differ")
+        nbytes = (x.numel() + y.numel()) * 4
+        it = iters_for(nbytes)
+        t = paired_ms({"alone": resize_launch_only(x, y, False, False),
+                       "library": lambda: F.interpolate(x, size=out, mode="bilinear",
+                                                        align_corners=False)}, it)
+        bnd, _ = bound_ms(nbytes, RESIZE_OPS * y.numel())
+        log(f"{name}: bit for bit (row = scalar = plain)  tile {plan.tile_h}x{plan.tile_w}, "
+            f"{plan.blocks} blocks, {plan.smem_bytes} B shared  launch alone {t['alone']:.4f} ms  "
+            f"F.interpolate {t['library']:.4f} ms  bound {bnd:.4f} ms")
+        del x, y, ref, other
+    torch.cuda.empty_cache()
+
+
 def paired_ms(fns: dict, iters: int, rounds: int = 3) -> dict:
     """time_ms of each fn, in turns over `rounds` rounds, the least of each:
     calls whose time is the host's launch work vary between rounds."""
@@ -440,13 +502,16 @@ CONV_MAIN = ((16, 224, 256, 256), 64)
 
 
 def conv_launch_only(x, w):
-    """The kernel's launch alone (bf16: Ci a multiple of 8), its operands
-    made beforehand: the device time where the wrapper's host work would
-    hide it."""
+    """The kernel's launch alone, its operands made beforehand (bf16: x
+    padded to a multiple of 8 channels, as the wrapper pads it): the device
+    time where the wrapper's host work would hide it."""
     b, ci, h, wd = x.shape
     co = w.shape[0]
     if x.dtype == torch.bfloat16:
-        wk, dims = conv_mod.weights_k_major(w, ci), (ci, co)
+        ci_k = -(-ci // conv_mod.CI_ALIGN) * conv_mod.CI_ALIGN
+        if ci_k != ci:
+            x = conv_mod.pad_channels(x, ci_k)
+        wk, dims = conv_mod.weights_k_major(w, ci_k), (ci_k, co)
         fn = "vaeunet_conv3x3_stats_bf16_wgmma"
     else:
         pads = (-(-ci // conv_mod.F32_CI_ALIGN) * conv_mod.F32_CI_ALIGN,
@@ -461,12 +526,12 @@ def conv_launch_only(x, w):
     args = (x.data_ptr(), wk.data_ptr(), y.data_ptr(), p + 8 * co, p + 8 * co + 4 * tiles * co,
             p, p + 4 * co, b, h, wd, *dims, tiles)
 
-    def launch(keep=(wk, y, buf)):      # the operands live as long as the launcher
+    def launch(keep=(x, wk, y, buf)):   # the operands live as long as the launcher
         _ext.call("conv_bn_stats", fn, x.device, *args)
     return launch
 
 
-def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
+def conv_case(g, shape, co, dtype, launch_alone: bool = False, timed: bool = True) -> dict:
     """y within 1e-5 of the summed magnitudes (conv of |x| with |w|) in
     fp32, the room fp32 rounding in another order needs; in bf16 one bf16
     ulp more, since the two fp32 values can round to neighbours (the tensor
@@ -474,7 +539,7 @@ def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
     (fp32) or 1e-4 (bf16) of sum |y|, q relative 1e-5 / 1e-4: both sides sum
     the same fp32 values in another order.  A second call must give the
     same bits.  `launch_alone` also times the kernel's launch without the
-    wrapper (bf16: Ci a multiple of 8)."""
+    wrapper; `timed=False` only checks."""
     x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
         memory_format=torch.channels_last)
     w = (torch.randn((co, shape[1], 3, 3), device="cuda", generator=g)
@@ -506,6 +571,9 @@ def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
     nbytes = (x.numel() + w.numel() + b * co * h * wd) * esize + 2 * co * 4
     peak = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
     bnd, by = bound_ms(nbytes, 2.0 * macs, peak)
+    if not timed:
+        log(f"{what}: y err {err:.3g} moments err {s_err:.3g}  (checked, not timed)")
+        return dict(err=err)
     k_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats(x, w))
     launch_ms = time_auto(conv_launch_only(x, w)) if launch_alone else None
     p_ms = time_auto(lambda: conv_mod.conv3x3_bn_stats_plain(x, w))
@@ -524,13 +592,43 @@ def conv_case(g, shape, co, dtype, launch_alone: bool = False) -> dict:
                 bound_ms=bnd, bound_by=by)
 
 
+def unet_convs(bilinear: bool, b: int = 16, hw: int = 512) -> list:
+    """(x NCHW, Co) of the plain UNet's 18 conv-kernel launches a training
+    forward: inc and down1-4 ((in, mid, out) each), then up1-4."""
+    f = 2 if bilinear else 1
+    convs, h = [], hw
+    for i, (ci, co) in enumerate(((3, 64), (64, 128), (128, 256), (256, 512), (512, 1024 // f))):
+        h = hw >> i
+        convs += [((b, ci, h, h), co), ((b, co, h, h), co)]
+    for ci, co in ((1024, 512 // f), (512, 256 // f), (256, 128 // f), (128, 64)):
+        h *= 2
+        mid = ci // 2 if bilinear else co
+        convs += [((b, ci, h, h), mid), ((b, mid, h, h), co)]
+    return convs
+
+
+# the resnet50 VAE-UNet's 21: the 13 stride-1 bottleneck conv2s, then the
+# decoder's 8, whose first conv takes 2048 + 1024 + 32 = 3104 channels
+R50_CONVS = ([((16, 64, 128, 128), 64)] * 3 + [((16, 128, 64, 64), 128)] * 3
+             + [((16, 256, 32, 32), 256)] * 5 + [((16, 512, 16, 16), 512)] * 2
+             + [((16, 3104, 32, 32), 512), ((16, 512, 32, 32), 512),
+                ((16, 1056, 64, 64), 256), ((16, 256, 64, 64), 256),
+                ((16, 544, 128, 128), 128), ((16, 128, 128, 128), 128),
+                ((16, 224, 256, 256), 64), ((16, 64, 256, 256), 64)])
+NEW_PATHS = (("UNet", unet_convs(False)), ("UNet bilinear", unet_convs(True)),
+             ("resnet50 VAE-UNet", R50_CONVS))
+
+
 def kernel_conv_bn_stats(table: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(7)
+    bf16 = {}                    # (shape, Co) -> timings of the bf16 kernel
     for dtype, entry in ((torch.bfloat16, "conv_bn_stats"), (torch.float32, "conv_bn_stats_fp32")):
         per_step = {"kernel": 0.0, "launch": 0.0, "library": 0.0, "bound": 0.0}
         lost = []
         for shape, co, n in CONV_STEP:
             r = conv_case(g, shape, co, dtype, launch_alone=True)
+            if dtype == torch.bfloat16:
+                bf16[(shape, co)] = r
             for k, key in (("kernel", "ms"), ("launch", "launch_ms"), ("library", "library_ms"),
                            ("bound", "bound_ms")):
                 per_step[k] += n * r[key]
@@ -548,6 +646,32 @@ def kernel_conv_bn_stats(table: dict) -> None:
             f"bound {per_step['bound']:.3f} ms  launch alone slower than F.conv2d+sums at: "
             f"{lost or 'no shape'}")
         _record(table, entry, err=conv_case(g, *CONV_RAGGED, dtype)["err"])
+    kernel_conv_new_shapes(table, g, bf16)
+
+
+def kernel_conv_new_shapes(table: dict, g, bf16: dict) -> None:
+    """The shapes of the plain UNet's and the resnet50 VAE-UNet's steps
+    that the resnet34 step does not have (Ci = 3 at 512^2, the ragged
+    K chunks of Ci = 3104, 1056, 544, ...): both types held against the
+    plain version, the bf16 launches timed beside F.conv2d + 2 sums, and
+    each path's sum of launches x ms against its bound."""
+    new = sorted({c for _, convs in NEW_PATHS for c in convs} - set(bf16),
+                 key=lambda c: (c[0][1], c[0][2], c[1]))
+    for shape, co in new:
+        bf16[(shape, co)] = conv_case(g, shape, co, torch.bfloat16, launch_alone=True)
+        _record(table, "conv_bn_stats", err=bf16[(shape, co)]["err"])
+        _record(table, "conv_bn_stats_fp32",
+                err=conv_case(g, shape, co, torch.float32, timed=False)["err"])
+        torch.cuda.empty_cache()
+    for name, convs in NEW_PATHS:
+        sums = {k: sum(bf16[c][k] for c in convs)
+                for k in ("ms", "launch_ms", "library_ms", "bound_ms")}
+        lost = sorted({f"{list(c[0])}->{c[1]}" for c in convs
+                       if bf16[c]["launch_ms"] > bf16[c]["library_ms"]})
+        log(f"conv_bn_stats per 512^2 b16 bf16 {name} step (sum over its {len(convs)} "
+            f"launches): kernel {sums['ms']:.3f} ms (launch alone {sums['launch_ms']:.3f} ms)  "
+            f"F.conv2d+sums {sums['library_ms']:.3f} ms  bound {sums['bound_ms']:.3f} ms  "
+            f"launch alone slower than F.conv2d+sums at: {lost or 'no shape'}")
 
 
 def kernel_resize_bwd(table: dict) -> None:
@@ -610,6 +734,7 @@ def phase_kernels() -> dict:
     table: dict = {}
     kernel_bn_relu(table)
     kernel_resize(table)
+    kernel_resize_c1_paths(table)
     kernel_noise(table)
     kernel_reparam(table)
     kernel_conv_bn_stats(table)
@@ -725,6 +850,11 @@ def train_config(**kw) -> TrainConfig:
     return TrainConfig(**base)
 
 
+def launches(times: int = 1, **per_run) -> dict:
+    """Every counter: `per_run` launches (0 where not named) `times` over."""
+    return {k: per_run.get(k, 0) * times for k in _ext.launch_counts()}
+
+
 def expected_train_launches(steps: int, amp: bool = True) -> dict:
     """Launches the training path's code implies: per forward, 29 encoder
     (stage sizes 3, 4, 6, 3: every block's conv2 and its stride-1 conv1) and
@@ -733,10 +863,8 @@ def expected_train_launches(steps: int, amp: bool = True) -> dict:
     and the latent draw one noise kernel; eval BN+ReLU and the fused draw
     are not on this path.  The logits' resize takes the row kernel, and
     without `amp` every conv launch the fp32 kernel."""
-    per_step = {"conv_bn_stats": 29 + 8, "conv_bn_stats_fp32": 0 if amp else 29 + 8,
-                "resize": 5, "resize_row": 1, "resize_bwd": 5, "normal": 1,
-                "bn_relu": 0, "reparam": 0}
-    return {k: v * steps for k, v in per_step.items()}
+    return launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
+                    resize=5, resize_row=1, resize_bwd=5, normal=1)
 
 
 def first_step_moved_everything(model, before: dict) -> None:
@@ -872,37 +1000,278 @@ def phase_train_fp32() -> dict:
 
 # ----- phase 8 -------------------------------------------------------------
 
-def phase_train_parity() -> None:
+def phase_train_parity(label: str = "resnet34 VAE-UNet", **config_kw) -> None:
     """One fp32 step on the card and on the CPU from the same weights,
-    batch and noise.  Tolerances as in tests/torch_train_parity.py; the
-    first Adam step is lr g / (|g| + eps), whose sign can flip where |g| is
-    near 0, hence 2 lr on the parameters, plus 1e-6 for the fp32 rounding
-    of p +- lr."""
+    batch and noise, 128^2, batch 2, accumulation 2.  Tolerances as in
+    tests/torch_train_parity.py; the first Adam step is lr g / (|g| + eps),
+    whose sign can flip where |g| is near 0, hence 2 lr on the parameters,
+    plus 1e-6 for the fp32 rounding of p +- lr."""
     use_fp32_numerics()
     lr = 1e-4
     config = train_config(batch_size=2, gradient_accumulation_steps=2, amp=False,
-                          patch_size=128, learning_rate=lr)
+                          patch_size=128, learning_rate=lr, **config_kw)
     g = torch.Generator().manual_seed(11)
     images = torch.rand((2, 128, 128, 3), generator=g)
     masks = (torch.rand((2, 128, 128, 1), generator=g) > 0.9).float()
-    eps = torch.randn((2, 1, 32), generator=g)
+    eps = torch.randn((2, 1, 32), generator=g) if config.model_type == "resnet" else None
     results = []
     for device in ("cuda", "cpu"):
         state = create_train_state(config, seed=3, device=device)
         state, aux = make_train_step(config, state.model)(state, images, masks, 0.001, eps=eps)
         results.append((aux["loss"].item(),
                         {k: v.detach().cpu() for k, v in state.model.state_dict().items()}))
+        del state
     (loss_gpu, sd_gpu), (loss_cpu, sd_cpu) = results
     err_p = max((sd_gpu[k] - v).abs().max().item() for k, v in sd_cpu.items()
                 if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
     err_s = max(((sd_gpu[k] - v).abs() - 1e-3 * v.abs()).max().item()
                 for k, v in sd_cpu.items() if k.endswith(("running_mean", "running_var")))
-    log(f"train parity, card vs CPU, fp32 128^2 b2 accum 2: loss {loss_gpu:.7f} vs "
+    log(f"train parity, {label}, card vs CPU, fp32 128^2 b2 accum 2: loss {loss_gpu:.7f} vs "
         f"{loss_cpu:.7f}  params max err {err_p:.3g} (2 lr = {2 * lr:g})  running stats "
         f"max err beyond 1e-3 |ref| {err_s:.3g}")
-    check(abs(loss_gpu - loss_cpu) <= 1e-5, f"loss differs from the CPU by {loss_gpu - loss_cpu}")
-    check(err_p <= 2 * lr + 1e-6, f"parameters differ from the CPU by {err_p} > 2 lr")
-    check(err_s <= 1e-4, f"running statistics differ from the CPU beyond 1e-4 + 1e-3 |ref|")
+    check(abs(loss_gpu - loss_cpu) <= 1e-5, f"{label}: loss differs from the CPU by "
+          f"{loss_gpu - loss_cpu}")
+    check(err_p <= 2 * lr + 1e-6, f"{label}: parameters differ from the CPU by {err_p} > 2 lr")
+    check(err_s <= 1e-4, f"{label}: running statistics differ from the CPU beyond "
+          f"1e-4 + 1e-3 |ref|")
+    torch.cuda.empty_cache()
+
+
+# ----- phase 9 -------------------------------------------------------------
+
+UNET_SCALED_HW = (1424, 2144)    # the fundus at predict.py's default --scale 0.5
+
+
+def phase_unet_serve() -> dict:
+    """The request of the top-level predict.py (``predict.py:45-61``) with
+    the model it builds by default, ``UNet(3, 1, bilinear=False)``: the
+    image already at --scale 0.5, ``predict_image``, the probabilities
+    resized back to 2848x4288 (align_corners=False, the row kernel), the
+    threshold.  Then the card against the CPU at 3x256x256, both
+    ``bilinear`` settings: logits atol 5e-4, masks equal except where
+    |p - 0.5| < 1e-4."""
+    use_fp32_numerics()
+    model = build_unet(3, 1, bilinear=False, seed=0, device="cuda")
+    randomize_bn_stats(model, seed=1)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    scaled = torch.rand((*UNET_SCALED_HW, 3), device="cuda", generator=g)
+    predict_image(model, scaled)                    # cuDNN's plans for these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    times = []
+    for r in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        probs, _ = predict_image(model, scaled)
+        full = resize_bilinear(probs[None].permute(0, 3, 1, 2), IMAGE_HW, align_corners=False)
+        mask = full[0, 0] > 0.5
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(tuple(full.shape) == (1, 1, *IMAGE_HW) and bool(torch.isfinite(full).all())
+              and bool(((full >= 0) & (full <= 1)).all()), "UNet request probabilities")
+        check(mask.dtype == torch.bool and tuple(mask.shape) == IMAGE_HW, "UNet request mask")
+        log(f"UNet request {r}: {times[-1]:.3f} s  mask share {mask.float().mean().item():.4f}")
+    counts = _ext.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = launches(N_REQUESTS, bn_relu=18, resize=1, resize_row=1)
+    log(f"UNet requests ({list(UNET_SCALED_HW)} in, {list(IMAGE_HW)} out): p50 "
+        f"{statistics.median(times):.3f} s  max {max(times):.3f} s  all "
+        f"{[round(t, 3) for t in times]}  peak memory {peak:.2f} GiB  (fp32, TF32 off)")
+    log(f"UNet request launches: {counts}  expected {expected}")
+    check(counts == expected, f"UNet request launch counts {counts} differ from {expected}")
+    for bilinear in (False, True):
+        card = model if not bilinear else build_unet(3, 1, bilinear=True, seed=0, device="cuda")
+        if bilinear:
+            randomize_bn_stats(card, seed=1)
+        cpu = copy.deepcopy(card).to("cpu")
+        image = torch.rand((256, 256, 3), generator=torch.Generator().manual_seed(15))
+        with torch.inference_mode():
+            lg = card(to_nchw(image.cuda()[None])).cpu()
+            lc = cpu(to_nchw(image[None]))
+        pg, mg = predict_image(card, image)
+        pc, mc = predict_image(cpu, image, device="cpu")
+        err = (lg - lc).abs().max().item()
+        flips = (mg.cpu() != mc)
+        log(f"UNet bilinear={bilinear} card vs CPU at 3x256x256: logits {err:.3g}  "
+            f"mask flips {int(flips.sum())}")
+        check(err <= 5e-4, f"UNet bilinear={bilinear}: logits differ from the CPU by {err}")
+        check(bool(((pc[flips] - 0.5).abs() < 1e-4).all()),
+              f"UNet bilinear={bilinear}: a mask pixel flips away from p = 0.5")
+        del card, cpu
+    del model, scaled, probs, full
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----- phases 10 and 11 ----------------------------------------------------
+
+NEW_WARMUP_STEPS, NEW_TIMED_STEPS = 3, 5
+
+
+def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
+    """The 512^2 batch-16 step of `config`: the first step moves every
+    parameter and leaves it finite; 3 warm and 5 timed steps, whose launch
+    counts must equal `per_step` x 5.  -> (state, counts, images, masks)."""
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3), device="cuda", generator=g)
+    masks = (torch.rand((TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 1), device="cuda", generator=g)
+             > 0.9).float()
+    before = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    t0 = time.perf_counter()
+    state, aux = step(state, images, masks, 0.001)
+    torch.cuda.synchronize()
+    log(f"{label} step 1 (cold): {time.perf_counter() - t0:.3f} s  loss {aux['loss'].item():.5f}")
+    first_step_moved_everything(state.model, before)
+    del before
+    for _ in range(NEW_WARMUP_STEPS - 1):
+        state, aux = step(state, images, masks, 0.001)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(NEW_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, images, masks, 0.001)
+        losses.append(aux["loss"].item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _ext.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"{label} losses {losses}")
+    log(f"{label} train steps: p50 {statistics.median(times):.4f} s  max {max(times):.4f} s  "
+        f"all {[round(t, 4) for t in times]}  "
+        f"{TRAIN_BATCH * NEW_TIMED_STEPS / sum(times):.1f} img/s  peak memory {peak:.2f} GiB  "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    expected = launches(NEW_TIMED_STEPS, **per_step)
+    log(f"{label} launches over {NEW_TIMED_STEPS} steps: {counts}  expected {expected}")
+    check(counts == expected, f"{label} launch counts {counts} differ from the code's {expected}")
+    return state, counts, images, masks
+
+
+def phase_unet_train() -> list:
+    """The bench.py step settings on the plain UNet, both ``bilinear``
+    settings: 18 conv-kernel launches a step, and with ``bilinear`` 4
+    resizes forward and 4 backward; one eval step (18 ``bn_relu``); then one
+    fp32 step card vs CPU at 128^2."""
+    out = []
+    for bilinear in (False, True):
+        config = train_config(model_type="basic", bilinear=bilinear)
+        label = f"UNet bilinear={bilinear}"
+        up = 4 if bilinear else 0
+        state, counts, images, masks = train_path(
+            config, label, dict(conv_bn_stats=18, resize=up, resize_bwd=up))
+        out.append(counts)
+        _ext.reset_launch_counts()
+        metrics, logits = make_eval_step(config, state.model)(images, masks)
+        torch.cuda.synchronize()
+        ecounts = _ext.launch_counts()
+        check(tuple(logits.shape) == (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 1)
+              and bool(torch.isfinite(logits).all()), f"{label} eval logits")
+        expected = launches(bn_relu=18, resize=up)
+        log(f"{label} eval step: {({k: round(v.item(), 5) for k, v in metrics.items()})}  "
+            f"launches {ecounts}")
+        check(ecounts == expected, f"{label} eval launch counts {ecounts} differ from {expected}")
+        del state, images, masks, logits
+        torch.cuda.empty_cache()
+        phase_train_parity(label, model_type="basic", bilinear=bilinear)
+    return out
+
+
+def phase_r50_train() -> dict:
+    """The bench.py step settings on the resnet50 VAE-UNet ('all',
+    attention skips) with deep supervision: 21 conv-kernel launches a step;
+    resizes: the decoder's 4 and the logits' 1, forward and backward, and
+    the masks' 3 downsamples for the heads (one channel, the row kernel);
+    one noise draw.  Then one fp32 step card vs CPU at 128^2."""
+    config = train_config(backbone="resnet50", deep_supervision=True)
+    state, counts, _, _ = train_path(
+        config, "resnet50 VAE-UNet + deep supervision",
+        dict(conv_bn_stats=21, resize=5 + 3, resize_row=1 + 3, resize_bwd=5, normal=1))
+    del state
+    torch.cuda.empty_cache()
+    phase_train_parity("resnet50 VAE-UNet + deep supervision", backbone="resnet50",
+                       deep_supervision=True)
+    return counts
+
+
+# ----- phase 12 ------------------------------------------------------------
+
+def phase_remat() -> dict:
+    """One fp32 resnet34 VAE-UNet step (TF32 off, 256^2, batch 4, the same
+    weights, batch and noise) without remat, with 'full' and with
+    'save_convs': loss and BN running statistics equal (atol 1e-6), the
+    gradient within relative L2 1e-5, ``num_batches_tracked`` 1 after the
+    step; 'full' recomputes all 37 kernel convs, 'save_convs' none; 'full'
+    holds less memory than no remat, at its peak and after the forward
+    (where 'save_convs' lies between the two)."""
+    use_fp32_numerics()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.rand((4, 256, 256, 3), device="cuda", generator=g)
+    masks = (torch.rand((4, 256, 256, 1), device="cuda", generator=g) > 0.9).float()
+    eps = torch.randn((1, 4, 32), device="cuda", generator=g)
+    runs, total = {}, launches()
+    for policy in ("none", "full", "save_convs"):
+        config = train_config(amp=False, batch_size=4, patch_size=256,
+                              use_remat=policy != "none",
+                              remat_policy="full" if policy == "none" else policy)
+        state = create_train_state(config, seed=0, device="cuda")
+        step = make_train_step(config, state.model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _ext.reset_launch_counts()
+        aux = step.compute_gradients(state, images, masks, 0.001, eps=eps)
+        torch.cuda.synchronize()
+        counts = _ext.launch_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        model = state.model
+        runs[policy] = dict(
+            loss=aux["loss"].item(), peak=peak, counts=counts,
+            grads={k: p.grad.detach().clone() for k, p in model.named_parameters()},
+            stats={k: v.clone() for k, v in model.state_dict().items() if "running_" in k},
+            tracked={int(v) for k, v in model.state_dict().items()
+                     if k.endswith("num_batches_tracked")})
+        # what the forward leaves for the backward: the memory remat cuts
+        model.zero_grad(set_to_none=True)
+        x = to_model_layout(images, images.device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss, _ = forward_loss(model, make_criterion(config.lesion_type, config.loss), config, x,
+                               masks, 0.001, eps=eps[0])
+        runs[policy]["held"] = (torch.cuda.memory_allocated() - before) / 2 ** 30
+        del loss, _, x
+        log(f"remat {policy}: loss {runs[policy]['loss']:.7f}  peak memory above the weights "
+            f"{peak:.3f} GiB  held after the forward {runs[policy]['held']:.3f} GiB  "
+            f"launches {counts}")
+        del state, step, model, aux
+        torch.cuda.empty_cache()
+    base = runs["none"]
+    check(base["counts"]["conv_bn_stats"] == 37, "remat none: conv launches")
+    for policy, conv_launches in (("full", 74), ("save_convs", 37)):
+        r = runs[policy]
+        ours = torch.cat([r["grads"][k].flatten() for k in base["grads"]])
+        theirs = torch.cat([v.flatten() for v in base["grads"].values()])
+        rel = ((ours - theirs).norm() / theirs.norm()).item()
+        stats_err = max((r["stats"][k] - v).abs().max().item() for k, v in base["stats"].items())
+        log(f"remat {policy} vs none: loss {r['loss'] - base['loss']:.3g}  running stats "
+            f"{stats_err:.3g}  gradient relative L2 {rel:.3g}  peak memory {r['peak']:.3f} vs "
+            f"{base['peak']:.3f} GiB  held after the forward {r['held']:.3f} vs "
+            f"{base['held']:.3f} GiB")
+        check(abs(r["loss"] - base["loss"]) <= 1e-6, f"remat {policy}: loss differs")
+        check(stats_err <= 1e-6, f"remat {policy}: running statistics differ by {stats_err}")
+        check(rel <= 1e-5, f"remat {policy}: gradient differs by {rel} (relative L2)")
+        check(r["tracked"] == {1}, f"remat {policy}: num_batches_tracked {r['tracked']}")
+        check(r["counts"]["conv_bn_stats"] == conv_launches,
+              f"remat {policy}: {r['counts']['conv_bn_stats']} conv launches, "
+              f"expected {conv_launches}")
+    check(base["tracked"] == {1}, f"remat none: num_batches_tracked {base['tracked']}")
+    check(runs["full"]["peak"] < base["peak"], "remat full holds no less memory than none")
+    check(runs["full"]["held"] < runs["save_convs"]["held"] < base["held"],
+          "the forward's saved activations do not shrink from none to save_convs to full")
+    return total
 
 
 KERNELS = (
@@ -938,6 +1307,7 @@ def main() -> None:
     use_fp32_numerics()
     phase_build()
     table = phase_kernels()
+    log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
     model = build_model(backbone="resnet34", latent_dim=32, latent_injection="all",
                         seed=0, device="cuda")
     randomize_bn_stats(model, seed=1)
@@ -948,11 +1318,14 @@ def main() -> None:
     train_counts = phase_train()
     fp32_counts = phase_train_fp32()
     phase_train_parity()
+    log(f"phases 4-8: {time.perf_counter() - t_start:.1f} s")
+    path_counts = [counts, train_counts, fp32_counts, phase_unet_serve(), *phase_unet_train(),
+                   phase_r50_train(), phase_remat()]
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": path_launches(name, counts, train_counts, fp32_counts),
+                        "launches": path_launches(name, *path_counts),
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -30,7 +30,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "vaeunet_tpu_torch.losses, vaeunet_tpu_torch.metrics, vaeunet_tpu_torch.training, "
             "vaeunet_tpu_torch.training.config, vaeunet_tpu_torch.training.state, "
             "vaeunet_tpu_torch.training.step, vaeunet_tpu_torch.training.schedule, "
-            "vaeunet_tpu_torch.ops.pallas.conv_bn_stats, vaeunet_tpu_torch.utils.profiling; "
+            "vaeunet_tpu_torch.ops.pallas.conv_bn_stats, vaeunet_tpu_torch.utils.profiling, "
+            "vaeunet_tpu_torch.models.parts, vaeunet_tpu_torch.models.unet, "
+            "vaeunet_tpu_torch.models.resnet, vaeunet_tpu_torch.ops.remat; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")
@@ -131,3 +133,20 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_unet_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+    """The plain UNet's factory and serving call keep the device rule."""
+    from vaeunet_tpu_torch.models import build_unet
+    from vaeunet_tpu_torch.training import TrainConfig, create_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_unet()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(TrainConfig(model_type="basic"))
+    model = build_unet(device="cpu")
+    with pytest.raises(RuntimeError):
+        predict_image(model, np.zeros((32, 32, 3), np.float32))
+    probs, mask = predict_image(model, np.zeros((32, 32, 3), np.float32), device="cpu")
+    assert probs.shape == mask.shape == (32, 32, 1)

@@ -128,7 +128,9 @@ def as_state_dict(params, batch_stats) -> dict:
     return convert_jax_unet_resnet(tree)
 
 
-def assert_grads_match(model: torch.nn.Module, ref: dict) -> None:
+def assert_grads_match(model: torch.nn.Module, ref: dict, head: str = "final_conv") -> None:
+    """The whole gradient by relative L2, the output conv `head` (which no
+    BN follows) per element."""
     grads = {k: p.grad for k, p in model.named_parameters()}
     assert set(grads) <= set(ref)
     assert all(g is not None for g in grads.values()), \
@@ -138,7 +140,7 @@ def assert_grads_match(model: torch.nn.Module, ref: dict) -> None:
     theirs = torch.cat([ref[k].flatten() for k in grads])
     rel = ((ours - theirs).norm() / theirs.norm()).item()
     assert rel <= 0.25, f"gradient differs from jax.grad by {rel} (relative L2)"
-    for k in ("final_conv.weight", "final_conv.bias"):
+    for k in (f"{head}.weight", f"{head}.bias"):
         tol = 1e-3 * ref[k].abs().max().item()
         err = (grads[k] - ref[k]).abs().max().item()
         assert err <= tol, f"{k}: grad differs by {err} > {tol}"

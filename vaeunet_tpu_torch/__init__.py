@@ -11,14 +11,16 @@ Ported so far: the N-sample uncertainty serving path of the ResNet
 VAE-UNet (``inference.segmentation_distribution``, ``uncertainty_maps``,
 ``predict_image``, ``predict_tiled_ensemble``) and its train and eval steps
 (``training.create_train_state``, ``make_train_step``, ``make_eval_step``,
-with ``losses`` and ``metrics``).  Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+with ``losses`` and ``metrics``); the plain UNet (``models.UNet``,
+``build_unet``) through the same serving call and steps; the
+resnet18/34/50/101 backbones, deep supervision and remat.  Entry points run
+on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
 from vaeunet_tpu_torch.device import resolve_device, use_fp32_numerics
-from vaeunet_tpu_torch.models import UNetResNet, build_model, capture_attention
+from vaeunet_tpu_torch.models import UNet, UNetResNet, build_model, build_unet, capture_attention
 from vaeunet_tpu_torch.inference import (
     predict_full_image,
     predict_image,
@@ -26,7 +28,7 @@ from vaeunet_tpu_torch.inference import (
     segmentation_distribution,
     uncertainty_maps,
 )
-from vaeunet_tpu_torch.compat import convert_jax_unet_resnet, load_jax_variables
+from vaeunet_tpu_torch.compat import convert_jax_unet, convert_jax_unet_resnet, load_jax_variables
 from vaeunet_tpu_torch.training import (
     TrainConfig,
     create_train_state,
@@ -37,14 +39,17 @@ from vaeunet_tpu_torch.training import (
 __all__ = [
     "resolve_device",
     "use_fp32_numerics",
+    "UNet",
     "UNetResNet",
     "build_model",
+    "build_unet",
     "capture_attention",
     "predict_full_image",
     "predict_image",
     "predict_tiled_ensemble",
     "segmentation_distribution",
     "uncertainty_maps",
+    "convert_jax_unet",
     "convert_jax_unet_resnet",
     "load_jax_variables",
     "TrainConfig",

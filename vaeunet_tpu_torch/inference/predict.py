@@ -6,7 +6,9 @@
   draw N tempered latents in one fused kernel launch, decode each (tiled
   for an image larger than the patch), take sigmoids
 - uncertainty_maps            <- visualize_vae.py:90-117
-- predict_image               scale -> forward -> sigmoid -> threshold
+- predict_image               forward -> sigmoid -> threshold, for the
+  VAE-UNet (z = mu, or a sampled z) and the plain UNet (the milesial
+  predict.py path, JAX ``predict.py:57-70``)
 
 Images are NHWC at these functions ([H,W,C] or [B,H,W,C]); maps come back
 NHWC.  Every entry point runs on CUDA unless called with ``device="cpu"``.
@@ -14,12 +16,13 @@ NHWC.  Every entry point runs on CUDA unless called with ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from vaeunet_tpu_torch.device import as_image, check_serving_model, resolve_device
 from vaeunet_tpu_torch.inference.tiled import predict_tiled_ensemble
+from vaeunet_tpu_torch.models.unet import UNet
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet
 from vaeunet_tpu_torch.vae_utils import sample_latents, to_nchw, to_nhwc
 
@@ -41,16 +44,22 @@ def predict_full_image(model: UNetResNet, image, z: torch.Tensor, device=None) -
 
 
 @torch.inference_mode()
-def predict_image(model: UNetResNet, image, out_threshold: float = 0.5,
+def predict_image(model: Union[UNetResNet, UNet], image, out_threshold: float = 0.5,
                   generator: Optional[torch.Generator] = None,
                   device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(probs, binary mask) for one [H,W,C] image: the deterministic z = mu
-    forward, or a sampled z when a generator is given."""
+    """(probs, binary mask) for one [H,W,C] image (or a [B,H,W,C] batch):
+    sigmoid > `out_threshold`.  The VAE-UNet takes the deterministic z = mu
+    forward, or a sampled z when a generator is given; the plain UNet has no
+    latent and refuses a generator."""
     device = resolve_device(device)
     check_serving_model(model, device)
     image = as_image(image, device)
     x = to_nchw(image[None] if image.dim() == 3 else image)
-    if generator is None:
+    if not isinstance(model, UNetResNet):
+        if generator is not None:
+            raise ValueError("a generator samples the VAE-UNet's latent; this model has none")
+        logits = model(x)
+    elif generator is None:
         logits, _, _ = model(x, sample=False)
     else:
         logits, _, _ = model(x, generator=generator)

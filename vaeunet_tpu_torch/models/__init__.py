@@ -1,4 +1,5 @@
 from vaeunet_tpu_torch.models.resnet import ResNetEncoder
+from vaeunet_tpu_torch.models.unet import UNet, build_unet
 from vaeunet_tpu_torch.models.vae_unet import (
     DecoderBlock,
     UNetResNet,
@@ -6,4 +7,5 @@ from vaeunet_tpu_torch.models.vae_unet import (
     capture_attention,
 )
 
-__all__ = ["ResNetEncoder", "DecoderBlock", "UNetResNet", "build_model", "capture_attention"]
+__all__ = ["ResNetEncoder", "DecoderBlock", "UNet", "UNetResNet", "build_model", "build_unet",
+           "capture_attention"]

@@ -21,6 +21,15 @@ sees the latent broadcast over B x H x W, so its unbiased running-variance
 factor uses that count, which is what the JAX fused decoder's
 ``virtual_n=b*h*w`` restores (``vae_unet.py:196-202``).
 
+The encoder's channels set the decoder's plan (JAX ``vae_unet.py:282-295``):
+resnet50/101 give a 2048-wide ``z_initial`` and a first decoder conv of
+2048 + 1024 + 32 input channels.  ``deep_supervision`` adds three 1x1 heads
+(``ds_heads.{0,1,2}``) on decoder levels 0-2, whose logits the forward
+hands out only when asked (``intermediates=``), as the JAX ``sow`` costs
+nothing unless ``'intermediates'`` is requested.  ``use_remat``
+rematerializes each residual and decoder block (``ops/remat.py``,
+``remat_policy`` 'full' or 'save_convs').
+
 Injection strategies (unet_resnet.py:104-123):
   'all'                  bottleneck + all 4 decoder levels
   'first'                bottleneck + level 0
@@ -38,10 +47,11 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from vaeunet_tpu_torch.device import resolve_device, use_fp32_numerics
+from vaeunet_tpu_torch.models.parts import AttentionGate
 from vaeunet_tpu_torch.models.resnet import ResNetEncoder
+from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu, conv3x3_bn
 from vaeunet_tpu_torch.ops.pool import avg_pool_global
 from vaeunet_tpu_torch.ops.resize import broadcast_latent_spatial, resize_bilinear
@@ -74,22 +84,6 @@ def resolve_injection(latent_injection: LatentInjection) -> Tuple[Tuple[bool, ..
     use_bottleneck = s not in ("none", "inject_no_bottleneck")
     should_sample = s not in ("none", "inject_no_bottleneck")
     return use_latent, use_bottleneck, should_sample
-
-
-class AttentionGate(nn.Module):
-    """Additive attention gate (unet_resnet.py:6-29): g is the upsampled
-    decoder feature, x the skip.  ``psi`` ends in its sigmoid, so a forward
-    hook on ``psi`` sees the attention map (see :func:`capture_attention`)."""
-
-    def __init__(self, f_g: int, f_l: int, f_int: int):
-        super().__init__()
-        self.W_g = nn.Sequential(Conv(f_g, f_int, 1), BatchNorm(f_int))
-        self.W_x = nn.Sequential(Conv(f_l, f_int, 1), BatchNorm(f_int))
-        self.psi = nn.Sequential(Conv(f_int, 1, 1), BatchNorm(1), nn.Sigmoid())
-
-    def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        psi = F.relu(self.W_g(g) + self.W_x(x))
-        return x * self.psi(psi)
 
 
 class DecoderBlock(nn.Module):
@@ -145,10 +139,14 @@ class UNetResNet(nn.Module):
     def __init__(self, n_channels: int = 3, n_classes: int = 1, backbone: str = "resnet34",
                  latent_dim: int = 32, use_attention: bool = True, use_skip: bool = True,
                  latent_injection: LatentInjection = "all",
-                 logvar_clamp: Optional[float] = 30.0):
+                 logvar_clamp: Optional[float] = 30.0, use_remat: bool = False,
+                 remat_policy: str = "full", deep_supervision: bool = False):
         super().__init__()
         use_latent, self.use_bottleneck, self.should_sample = resolve_injection(
             latent_injection)
+        self.use_remat = use_remat
+        self.remat_policy = remat.check_policy(remat_policy)
+        self.deep_supervision = deep_supervision
         self.n_channels = n_channels
         self.latent_dim = latent_dim
         self.latent_injection = latent_injection
@@ -157,7 +155,8 @@ class UNetResNet(nn.Module):
         # finite where the reference's KL clamp lets logvar drift.
         self.logvar_clamp = logvar_clamp
 
-        self.encoder = ResNetEncoder(n_channels, backbone=backbone)
+        self.encoder = ResNetEncoder(n_channels, backbone=backbone, use_remat=use_remat,
+                                     remat_policy=remat_policy)
         enc_ch = self.encoder.feature_channels           # resnet34: [64,64,128,256,512]
         self.mu_head = nn.Sequential(Conv(enc_ch[-1], latent_dim, 1))
         self.logvar_head = nn.Sequential(Conv(enc_ch[-1], latent_dim, 1))
@@ -176,6 +175,8 @@ class UNetResNet(nn.Module):
             for i, (in_ch, skip_ch, out_ch) in enumerate(plans)
         ])
         self.final_conv = Conv(64, n_classes, 1)
+        if deep_supervision:
+            self.ds_heads = nn.ModuleList([Conv(plans[i][2], n_classes, 1) for i in range(3)])
 
     # ----- pieces -------------------------------------------------------
 
@@ -212,8 +213,12 @@ class UNetResNet(nn.Module):
         return mu + eps * std * temperature
 
     def decode_features(self, z: torch.Tensor, features: Sequence[torch.Tensor],
-                        output_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        """Decoder from a latent z [B, D] and precomputed encoder features."""
+                        output_hw: Optional[Tuple[int, int]] = None,
+                        intermediates: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> torch.Tensor:
+        """Decoder from a latent z [B, D] and precomputed encoder features.
+        With deep supervision and an `intermediates` dict, the heads' logits
+        of decoder levels 0-2 go into it as ``ds_logits_{i}``."""
         bottleneck = features[-1]
         if self.use_bottleneck:
             z_sp = broadcast_latent_spatial(z, tuple(bottleneck.shape[2:]))
@@ -222,7 +227,12 @@ class UNetResNet(nn.Module):
             x = bottleneck
         for i, block in enumerate(self.decoder_blocks):
             skip = features[-(i + 2)] if (i < len(features) - 1 and self.use_skip) else None
-            x = block(x, skip, z)
+            if self.use_remat:
+                x = remat.checkpoint(block, x, skip, z, policy=self.remat_policy)
+            else:
+                x = block(x, skip, z)
+            if intermediates is not None and self.deep_supervision and i < 3:
+                intermediates[f"ds_logits_{i}"] = self.ds_heads[i](x)
         logits = self.final_conv(x)
         if output_hw is not None and tuple(output_hw) != tuple(logits.shape[2:]):
             logits = resize_bilinear(logits, output_hw, align_corners=True)
@@ -232,18 +242,22 @@ class UNetResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, sample: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None,
+                intermediates: Optional[Dict[str, torch.Tensor]] = None):
         """-> (logits, mu, logvar).  (unet_resnet.py:196-240)
 
         `sample=None` follows the injection strategy; sample=False is the
         deterministic z = mu forward.  A sampled z draws its noise from
         `generator`, or takes `eps` [B, latent_dim] as given.
+        `intermediates` collects the deep-supervision logits
+        (:meth:`decode_features`).
         """
         input_hw = tuple(x.shape[2:])
         mu, logvar, features = self.encode_with_features(x)
         do_sample = self.should_sample if sample is None else sample
         z = self.reparameterize(mu, logvar, generator, eps=eps) if do_sample else mu
-        logits = self.decode_features(z, features, output_hw=input_hw)
+        logits = self.decode_features(z, features, output_hw=input_hw,
+                                      intermediates=intermediates)
         return logits, mu, logvar
 
     def decode(self, z: torch.Tensor, input_size: Optional[Tuple[int, int]] = None,
@@ -286,7 +300,8 @@ def capture_attention(model: UNetResNet) -> Iterator[Dict[str, torch.Tensor]]:
 def build_model(n_channels: int = 3, n_classes: int = 1, backbone: str = "resnet34",
                 latent_dim: int = 32, latent_injection: LatentInjection = "all",
                 use_attention: bool = True, use_skip: bool = True,
-                logvar_clamp: Optional[float] = 30.0, seed: int = 0,
+                logvar_clamp: Optional[float] = 30.0, use_remat: bool = False,
+                remat_policy: str = "full", deep_supervision: bool = False, seed: int = 0,
                 device=None) -> UNetResNet:
     """A ``UNetResNet`` with PyTorch-default init drawn from `seed`, in eval
     mode and channels_last memory on `device` (CUDA unless ``"cpu"``)."""
@@ -295,7 +310,9 @@ def build_model(n_channels: int = 3, n_classes: int = 1, backbone: str = "resnet
         torch.manual_seed(seed)
         model = UNetResNet(n_channels, n_classes, backbone=backbone, latent_dim=latent_dim,
                            use_attention=use_attention, use_skip=use_skip,
-                           latent_injection=latent_injection, logvar_clamp=logvar_clamp)
+                           latent_injection=latent_injection, logvar_clamp=logvar_clamp,
+                           use_remat=use_remat, remat_policy=remat_policy,
+                           deep_supervision=deep_supervision)
     if device.type == "cuda":
         use_fp32_numerics()
     return model.to(device=device, memory_format=torch.channels_last).eval()

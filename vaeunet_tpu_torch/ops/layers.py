@@ -18,7 +18,13 @@ them to XLA), in the input's type as the JAX ``Conv`` computes them
 
 The fused-decoder helpers ``SlicedConv`` / ``constant_input_term`` are
 exact rewrites of the concatenation form, which the port computes
-directly (``models/vae_unet.py``).
+directly (``models/vae_unet.py``).  :class:`ConvTranspose2x`, the plain
+UNet's learned upsample, runs on cuDNN (``F.conv_transpose2d``): the JAX
+package has no Pallas kernel for it.
+
+Inside the recompute of a rematerialized block (``ops/remat.py``) a
+training-mode :class:`BatchNorm` normalizes as it did in the forward but
+leaves its running statistics alone, so that they move once a step.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
 from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats
 
@@ -54,12 +61,32 @@ class Conv(nn.Conv2d):
                 and self.groups == 1 and self.bias is None)
 
 
+class ConvTranspose2x(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d(in, out, kernel_size=2, stride=2)`` (reference
+    unet/unet_parts.py:76; JAX ``ops/layers.py:112``), computed in the
+    input's type as :class:`Conv` is."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5): biased batch variance to
     normalize, unbiased to update the running variance."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and remat.bn_frozen():
+            # the same call on copies of the running statistics: the same
+            # output, and the update lands in the copies
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
+        return super().forward(x)
 
     def forward_moments(self, y: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """Training-mode BN of `y` from its per-channel fp32 sum `s` and sum
@@ -72,11 +99,12 @@ class BatchNorm(nn.BatchNorm2d):
         n = y.numel() // c
         mean = s / n
         var = torch.clamp(q / n - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
-            self.num_batches_tracked.add_(1)
+        if not remat.bn_frozen():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
+                self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps) * self.weight
         shape = (1, c, 1, 1)
         out = (y.float() - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)

@@ -14,18 +14,29 @@ norm and would differ), then ``torch.optim.AdamW`` with betas (0.9, 0.999),
 eps 1e-8 and the config's weight decay over every parameter, as optax's
 unmasked ``adamw`` decays every leaf.  The learning rate lives in the
 param groups, so a host-side schedule changes it between steps.
+``ClippedAdamW.state_dict`` / ``load_state_dict`` carry AdamW's state and
+the clip norm, so a restored optimizer takes the step an unbroken one
+would.
+
+:func:`build_model` builds the config's model (``model_type`` 'resnet':
+the VAE-UNet; 'basic': the plain UNet) and honours or refuses each of its
+architecture fields: ``bilinear`` (the plain UNet's), ``use_remat`` and
+``remat_policy`` (both), ``deep_supervision`` (the VAE-UNet's; the JAX
+step ignores it for the plain UNet, the port refuses it).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
 from vaeunet_tpu_torch.compat.jax_weights import load_jax_variables
 from vaeunet_tpu_torch.device import resolve_device
+from vaeunet_tpu_torch.models.unet import UNet, build_unet
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet, build_model as build_vae_unet
+from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.training.config import TrainConfig
 
 
@@ -61,6 +72,13 @@ class ClippedAdamW:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> Dict[str, Any]:
+        return {"adamw": self.adamw.state_dict(), "max_norm": self.max_norm}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.max_norm = float(state["max_norm"])
+        self.adamw.load_state_dict(state["adamw"])
+
 
 @dataclass
 class TrainState:
@@ -84,17 +102,30 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     return state
 
 
-def build_model(config: TrainConfig, seed: int = 0, device=None) -> UNetResNet:
-    """The config's VAE-UNet with PyTorch-default init from `seed`, in
-    channels_last memory on `device` (CUDA unless ``"cpu"``), in eval mode.
-    The plain UNet (``model_type='basic'``) is not ported yet."""
+def build_model(config: TrainConfig, seed: int = 0,
+                device=None) -> Union[UNetResNet, UNet]:
+    """The config's model with PyTorch-default init from `seed`, in
+    channels_last memory on `device` (CUDA unless ``"cpu"``), in eval mode
+    (train.py:680-695).  Raises for a field the model cannot honour."""
+    remat.check_policy(config.remat_policy)
+    if config.model_type == "basic":
+        if config.deep_supervision:
+            raise ValueError("deep_supervision needs model_type='resnet': the plain UNet has "
+                             "no auxiliary heads")
+        return build_unet(n_channels=config.n_channels, n_classes=config.n_classes,
+                          bilinear=config.bilinear, use_remat=config.use_remat,
+                          remat_policy=config.remat_policy, seed=seed, device=device)
     if config.model_type != "resnet":
-        raise ValueError(f"model_type {config.model_type!r} is not ported yet; use 'resnet'")
+        raise ValueError(f"model_type {config.model_type!r}: expected 'resnet' or 'basic'")
+    if config.bilinear:
+        raise ValueError("bilinear=True selects the plain UNet's upsampling; the VAE-UNet's "
+                         "decoder is always bilinear (use model_type='basic')")
     return build_vae_unet(n_channels=config.n_channels, n_classes=config.n_classes,
                           backbone=config.backbone, latent_dim=config.latent_dim,
                           latent_injection=config.latent_injection,
                           use_attention=config.use_attention, use_skip=config.use_skip,
-                          seed=seed, device=device)
+                          use_remat=config.use_remat, remat_policy=config.remat_policy,
+                          deep_supervision=config.deep_supervision, seed=seed, device=device)
 
 
 def create_train_state(config: TrainConfig, seed: int = 0,

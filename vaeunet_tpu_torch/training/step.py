@@ -13,17 +13,30 @@
   (``step.py:39-40``); parameters, BN statistics and the loss stay fp32.
   No ``torch.autocast``.
 
+- the plain UNet (``model_type='basic'``) trains through the same step:
+  no latent, kl = 0, mu and logvar fp32 zeros [B, 1] (``step.py:43-51``);
+- ``deep_supervision`` (VAE-UNet only, as JAX's ``ds = is_vae and ...``):
+  the heads of decoder levels 2, 1, 0 add their loss against the masks
+  resized to their size (``align_corners=False``, the resize kernel) with
+  weights 1/2, 1/4, 1/8, and the sum is divided by the total weight
+  (``step.py:54-67``);
+- ``debug_nans`` (``step.py:117-120``): the forward and backward run under
+  ``torch.autograd.detect_anomaly(check_nan=True)`` and a non-finite loss
+  raises ``FloatingPointError``; without the flag neither runs, so the step
+  makes no host sync for it.
+
 Images and masks come NHWC, as the JAX step takes them ([B, H, W, 3] and
 [B, H, W, n_classes]); the model sees NCHW in channels_last memory, a free
 view of the same bytes.  beta is a plain float.
 
 Not ported yet: the device-cache ``indexed`` variant, ``augment=True``,
-deep supervision, ``multi_temp_training_step`` and the data-parallel
-``axis_name`` all-reduce.
+``multi_temp_training_step`` and the data-parallel ``axis_name``
+all-reduce.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -31,6 +44,7 @@ import torch
 from vaeunet_tpu_torch.device import as_image
 from vaeunet_tpu_torch.losses import kl_with_free_bits, make_criterion
 from vaeunet_tpu_torch.metrics import get_all_metrics
+from vaeunet_tpu_torch.models.vae_unet import UNetResNet
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.training.config import TrainConfig
 from vaeunet_tpu_torch.training.state import TrainState
@@ -54,11 +68,31 @@ def forward_loss(model: torch.nn.Module, criterion: Callable, config: TrainConfi
     fp32, masks NHWC fp32 -> (loss, aux)."""
     if config.amp:
         images = images.to(torch.bfloat16)
-    logits, mu, logvar = model(images, generator=generator, eps=eps)
+    is_vae = isinstance(model, UNetResNet)
+    ds = is_vae and config.deep_supervision
+    inter: Optional[Dict[str, torch.Tensor]] = {} if ds else None
+    if is_vae:
+        logits, mu, logvar = model(images, generator=generator, eps=eps, intermediates=inter)
+    else:
+        logits = model(images)
+        mu = logvar = torch.zeros((images.shape[0], 1), device=images.device)
     logits = logits.float().permute(0, 2, 3, 1)
     recon = criterion(logits, masks)
-    kl = kl_with_free_bits(mu, logvar, free_bits=config.free_bits,
-                           clamp_leak=config.kl_clamp_leak)
+    if ds:
+        masks_cl = masks.permute(0, 3, 1, 2)          # channels_last NCHW, the same bytes
+        w, total_w = 1.0, 1.0
+        for i in (2, 1, 0):                           # 1/4 -> 1/16 resolution
+            aux = inter[f"ds_logits_{i}"].float()
+            w *= 0.5
+            soft = resize_bilinear(masks_cl, tuple(aux.shape[2:]), align_corners=False)
+            recon = recon + w * criterion(aux.permute(0, 2, 3, 1), soft.permute(0, 2, 3, 1))
+            total_w += w
+        recon = recon / total_w
+    if is_vae:
+        kl = kl_with_free_bits(mu, logvar, free_bits=config.free_bits,
+                               clamp_leak=config.kl_clamp_leak)
+    else:
+        kl = torch.zeros((), device=images.device)
     loss = recon + beta * kl
     aux = {"loss": loss, "recon_loss": recon, "kl_loss": kl,
            "mu": mu.float(), "logvar": logvar.float()}
@@ -79,10 +113,17 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
     aux`` stops before the clip: the parameters' ``.grad`` then hold the
     mean of the microbatch gradients.
     """
-    if config.deep_supervision:
-        raise ValueError("deep supervision is not ported yet")
     criterion = criterion or make_criterion(config.lesion_type, config.loss)
     accum = max(1, config.gradient_accumulation_steps)
+    is_vae = isinstance(model, UNetResNet)
+    if config.deep_supervision and not (is_vae and model.deep_supervision):
+        raise ValueError("deep_supervision needs a VAE-UNet built with its heads "
+                         "(training.build_model)")
+
+    def anomaly_mode():
+        if config.debug_nans:
+            return torch.autograd.detect_anomaly(check_nan=True)
+        return contextlib.nullcontext()
 
     def compute_gradients(state: TrainState, images, masks, beta: float,
                           eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -95,6 +136,8 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
         if micro * accum != b:
             raise ValueError(f"batch {b} not divisible by accumulation {accum}")
         if eps is not None:
+            if not is_vae:
+                raise ValueError("eps feeds the VAE-UNet's latent; this model has none")
             eps = torch.as_tensor(eps, dtype=torch.float32, device=device)
             if tuple(eps.shape[:2]) != (accum, micro):
                 raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
@@ -103,10 +146,13 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
         auxes = []
         for i in range(accum):
             sl = slice(i * micro, (i + 1) * micro)
-            loss, aux = forward_loss(model, criterion, config, x[sl], m[sl], beta,
-                                     generator=state.generator,
-                                     eps=None if eps is None else eps[i])
-            loss.backward()
+            with anomaly_mode():
+                loss, aux = forward_loss(model, criterion, config, x[sl], m[sl], beta,
+                                         generator=state.generator,
+                                         eps=None if eps is None else eps[i])
+                if config.debug_nans and not bool(torch.isfinite(loss)):
+                    raise FloatingPointError(f"non-finite loss {loss.item()} in microbatch {i}")
+                loss.backward()
             auxes.append({k: v.detach() for k, v in aux.items()})
         if accum > 1:
             with torch.no_grad():
@@ -139,8 +185,10 @@ def make_eval_step(config: TrainConfig, model: torch.nn.Module,
     strategy samples (the reference draws it even under inference mode),
     metrics on raw logits at 0.5 unless `apply_sigmoid_for_metrics`, the
     logits resized to the mask's H x W on a mismatch, and ``valid`` ([B]
-    0/1) dropping padded rows.  logits come back NHWC fp32.
+    0/1) dropping padded rows.  logits come back NHWC fp32.  The plain
+    UNet's logits are its forward's (``step.py:261-265``).
     """
+    is_vae = isinstance(model, UNetResNet)
 
     @torch.inference_mode()
     def step(images, masks, generator: Optional[torch.Generator] = None,
@@ -151,7 +199,10 @@ def make_eval_step(config: TrainConfig, model: torch.nn.Module,
         m = torch.as_tensor(masks, dtype=torch.float32, device=device)
         if config.amp:
             x = x.to(torch.bfloat16)
-        logits, _, _ = model(x, generator=generator, eps=eps)
+        if is_vae:
+            logits, _, _ = model(x, generator=generator, eps=eps)
+        else:
+            logits = model(x)
         logits = logits.float()
         if tuple(logits.shape[2:]) != tuple(m.shape[1:3]):
             logits = resize_bilinear(logits, tuple(m.shape[1:3]), align_corners=True)

@@ -5,11 +5,14 @@ context manager around ``jax.profiler``), here over ``torch.profiler``.
     python -m vaeunet_tpu_torch.utils.profiling            # one request
     python -m vaeunet_tpu_torch.utils.profiling --train    # one train step
     python -m vaeunet_tpu_torch.utils.profiling --train --fp32   # ... with amp=False
+    python -m vaeunet_tpu_torch.utils.profiling --train --model unet   # another model
 
 runs, after a warm-up, one N-sample uncertainty request (the
 full-resolution tiled request of ``chip_smoke.py``), or one warm training
 step (the 512^2 batch-16 bf16 step of ``chip_smoke.py`` phase 6, or with
-``--fp32`` its fp32 form with TF32 off, phase 7), under
+``--fp32`` its fp32 form with TF32 off, phase 7; ``--model`` picks the
+resnet34 VAE-UNet, the plain UNet of either ``bilinear`` setting or the
+resnet50 VAE-UNet with deep supervision, phases 10 and 11), under
 ``torch.profiler`` on the card and prints the device time by kernel family
 and the top kernels, the wall time, and the device's idle share (1 - summed
 kernel time / wall time; one stream, so kernels do not overlap).  Needs a
@@ -101,9 +104,18 @@ def serving_request() -> Callable[[], None]:
     return request
 
 
-def train_step(amp: bool = True) -> Callable[[], None]:
-    config = TrainConfig(model_type="resnet", batch_size=16, gradient_accumulation_steps=1,
-                         amp=amp, patch_size=512, learning_rate=1e-4)
+# --model -> the config fields of its step
+MODELS = {
+    "vaeunet": dict(model_type="resnet"),
+    "unet": dict(model_type="basic"),
+    "unet_bilinear": dict(model_type="basic", bilinear=True),
+    "resnet50_ds": dict(model_type="resnet", backbone="resnet50", deep_supervision=True),
+}
+
+
+def train_step(amp: bool = True, model: str = "vaeunet") -> Callable[[], None]:
+    config = TrainConfig(batch_size=16, gradient_accumulation_steps=1, amp=amp,
+                         patch_size=512, learning_rate=1e-4, **MODELS[model])
     state = create_train_state(config, seed=0, device="cuda")
     step = make_train_step(config, state.model)
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -123,20 +135,23 @@ def main() -> None:
                         help="profile one warm 512^2 batch-16 bf16 training step")
     parser.add_argument("--fp32", action="store_true",
                         help="with --train: amp=False and TF32 off, the fp32 conv kernel's path")
+    parser.add_argument("--model", choices=sorted(MODELS), default="vaeunet",
+                        help="with --train: the model of the step (default the resnet34 "
+                             "VAE-UNet)")
     args = parser.parse_args()
-    if args.fp32 and not args.train:
-        parser.error("--fp32 goes with --train (the request is fp32 already)")
+    if (args.fp32 or args.model != "vaeunet") and not args.train:
+        parser.error("--fp32 and --model go with --train")
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device is available")
     if args.fp32:
         use_fp32_numerics()
-    fn = train_step(amp=not args.fp32) if args.train else serving_request()
+    fn = train_step(amp=not args.fp32, model=args.model) if args.train else serving_request()
     fn()                                           # warm-up: library load, cuDNN plans
     if args.train:
         fn()
     out = device_breakdown(fn)
-    what = ("fp32 train step (TF32 off), 512^2 batch 16" if args.fp32 else
-            "bf16 train step, 512^2 batch 16" if args.train else "fp32 request, TF32 off")
+    what = (f"{'fp32 (TF32 off)' if args.fp32 else 'bf16'} {args.model} train step, 512^2 "
+            f"batch 16" if args.train else "fp32 request, TF32 off")
     print(f"device: {torch.cuda.get_device_name(0)}  ({what})")
     print(f"wall {out['wall_s']:.3f} s  device busy {out['device_s']:.3f} s  "
           f"idle share {out['idle_share']:.3f}")
