@@ -52,9 +52,13 @@ the card, in phases that each fail the run with a non-zero exit:
 
 Phase 3 also holds the conv kernel in both types at every conv shape of the
 paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
-each path's sum of launches x ms against its bound), and the one-channel
-resizes of those paths (the mask downsamples by 4, 8 and 16 and the
-request's upscale) bit for bit.
+each path's sum of launches x ms against its bound), the resize kernels,
+forward and backward in both types, at the two shapes of those paths that
+the resnet34 step lacks (the resnet50 decoder's [16,2048,16,16] -> 32^2,
+the bilinear UNet's [16,64,256,256] -> 512^2), the one-channel resizes of
+those paths (the mask downsamples by 4, 8 and 16 and the request's
+upscale) bit for bit, and ``bn_relu`` at phase 9's fp32 shapes (its
+widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]).
 
 Serving and every comparison run in full fp32 (TF32 off for cuDNN
 convolutions and matmuls); the training step of phase 6 in bf16.  The last
@@ -200,16 +204,25 @@ def _record(table: dict, name: str, **kw) -> None:
     rec.update(kw)
 
 
+# (NCHW, types): the VAE-UNet request's widest and narrowest pairs, then the
+# plain UNet request's (fp32 at 1424x2144): its widest tensor, and the
+# bottom's odd 89x134
+BN_RELU_SHAPES = (((8, 64, 256, 256), (torch.float32, torch.bfloat16)),
+                  ((8, 512, 16, 16), (torch.float32, torch.bfloat16)),
+                  ((1, 64, 1424, 2144), (torch.float32,)),
+                  ((1, 1024, 89, 134), (torch.float32,)))
+
+
 def kernel_bn_relu(table: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(1)
-    for shape in ((8, 64, 256, 256), (8, 512, 16, 16)):
+    for shape, dtypes in BN_RELU_SHAPES:
         c = shape[1]
         scale = torch.rand(c, device="cuda", generator=g) + 0.5
         bias = torch.randn(c, device="cuda", generator=g)
         mean = torch.randn(c, device="cuda", generator=g) * 0.5
         var = torch.rand(c, device="cuda", generator=g) + 0.5
         a, b = bn_relu_mod.fold(scale, bias, mean, var)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
                 memory_format=torch.channels_last)
             y = bn_relu_mod.fused_bn_relu(x, scale, bias, mean, var)
@@ -244,10 +257,16 @@ RESIZE_SHAPES = (((8, 512, 16, 16), 32), ((8, 512, 32, 32), 64), ((8, 256, 64, 6
 RESIZE_BWD_SHAPES = (((16, 512, 16, 16), 32), ((16, 512, 32, 32), 64),
                      ((16, 256, 64, 64), 128), ((16, 128, 128, 128), 256),
                      ((16, 1, 256, 256), 512))
+# the resizes of the plain UNet's and the resnet50 VAE-UNet's steps that
+# the resnet34 step lacks: the resnet50 decoder's first upsample and the
+# bilinear UNet's last, forward and backward
+NEW_PATH_RESIZES = (((16, 2048, 16, 16), 32), ((16, 64, 256, 256), 512))
 # (shapes, type, what the sum of its launches x ms is called)
 RESIZE_SETS = ((RESIZE_SHAPES, torch.float32, "request (100 launches a shape)", 100),
                (RESIZE_BWD_SHAPES, torch.bfloat16, "512^2 b16 bf16 step", 1),
-               (RESIZE_BWD_SHAPES, torch.float32, "512^2 b16 fp32 step", 1))
+               (RESIZE_BWD_SHAPES, torch.float32, "512^2 b16 fp32 step", 1),
+               (NEW_PATH_RESIZES, torch.bfloat16, "the new paths' two extra bf16 shapes", 1),
+               (NEW_PATH_RESIZES, torch.float32, "the new paths' two extra fp32 shapes", 1))
 
 
 def resize_launch_only(src, dst, ac: bool, backward: bool):

@@ -83,6 +83,32 @@ def test_one_channel_path_resizes_take_the_row_kernel_bit_for_bit(cuda, shape, o
     assert torch.equal(y, other)
 
 
+@pytest.mark.parametrize("shape,out", [((2, 2048, 16, 16), 32), ((2, 64, 256, 256), 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_new_path_resizes_match_plain_and_scalar(cuda, shape, out, dtype):
+    """The resnet50 decoder's first upsample and the bilinear UNet's last
+    (align_corners=True), forward and backward: within the plain version's
+    tolerance (fp32 1e-6, of the summed magnitudes in the backward, plus a
+    bf16 ulp), and the kernel the plan picks equal to the scalar kernel."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = cl(torch.randn(shape, device=cuda, generator=g).to(dtype))
+    gy = cl(torch.randn((shape[0], shape[1], out, out), device=cuda, generator=g).to(dtype))
+    y = resize_mm.resize(x, (out, out), True)
+    gx = resize_mm.resize_backward(gy, shape[2:], True)
+    for got, src, backward in ((y, x, False), (gx, gy, True)):
+        other = torch.empty_like(got)
+        fn, args = resize_mm.launch_args(src, other, True, backward=backward, scalar=True)
+        _ext.call("resize", fn, src.device, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, other), backward
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    ref = resize_mm.resize_plain(x, (out, out), True).float()
+    assert bool(((y.float() - ref).abs() <= 1e-6 + ref.abs() * ulp).all())
+    ref = resize_mm.resize_backward_plain(gy, shape[2:], True).float()
+    mag = resize_mm.resize_backward_plain(gy.float().abs(), shape[2:], True)
+    assert bool(((gx.float() - ref).abs() <= 1e-6 * mag + gx.float().abs() * ulp).all())
+
+
 class _Block(torch.nn.Module):
     """An upsample (the resize kernel) and a conv + BN (the conv kernel)."""
 

@@ -8,8 +8,9 @@ CPU.
 - Remat 'full' and 'save_convs' against no remat on the port alone, for
   the VAE-UNet and the bilinear UNet: loss and BN running statistics within
   1e-6, the gradient within relative L2 1e-5, every BN's
-  ``num_batches_tracked`` moved by exactly 1; 'save_convs' runs no conv
-  twice, 'full' runs every one of the block's convs again.
+  ``num_batches_tracked`` moved by exactly 1; 'save_convs' runs no 3x3
+  conv twice (the strided ones included, as JAX keeps them), 'full' runs
+  every one of the blocks' 3x3 convs again.  The UNet takes 'full' only.
 - ``debug_nans`` raises on a NaN input and changes nothing otherwise.
 - ``ClippedAdamW`` saved and restored takes the step an unbroken one takes.
 """
@@ -20,6 +21,7 @@ import io
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +32,6 @@ from vaeunet_tpu.training.config import TrainConfig as JaxTrainConfig
 from vaeunet_tpu.training.state import create_train_state as jax_create_train_state
 from vaeunet_tpu.training.step import _forward_loss as jax_forward_loss
 
-from vaeunet_tpu_torch.ops.pallas import conv_bn_stats
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 from tests.torch_train_parity import (
     BATCH,
@@ -126,40 +127,45 @@ def test_deep_supervision_loss_and_gradient_match_jax(monkeypatch):
     assert abs(plain["recon_loss"].item() - aux["recon_loss"].item()) > 1e-4
 
 
+class _Count3x3Convs(TorchDispatchMode):
+    """Counts the 3x3 convolutions (the conv kernel's plain version and the
+    strided convs), the backward's recompute included."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default and tuple(args[1].shape[-2:]) == (3, 3):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
 def run_step(cfg: TrainConfig, images, masks, eps):
-    """compute_gradients from seed 0 -> (aux, gradients, state dict, calls
-    of the conv wrapper's forward)."""
+    """compute_gradients from seed 0 -> (aux, gradients, state dict, 3x3
+    convs run in the forward and the backward)."""
     state = create_train_state(cfg, seed=0, device="cpu")
-    calls = []
-    real = conv_bn_stats.conv3x3_bn_stats_plain
-
-    def counting(x, w):
-        calls.append(x.shape)
-        return real(x, w)
-
-    conv_bn_stats.conv3x3_bn_stats_plain = counting
-    try:
+    with _Count3x3Convs() as convs:
         aux = make_train_step(cfg, state.model).compute_gradients(
             state, images, masks, BETA, eps=eps)
-    finally:
-        conv_bn_stats.conv3x3_bn_stats_plain = real
     grads = {k: p.grad.clone() for k, p in state.model.named_parameters() if p.grad is not None}
-    return aux, grads, state.model.state_dict(), len(calls)
+    return aux, grads, state.model.state_dict(), convs.n
 
 
 @pytest.mark.parametrize("kind", ["vae", "unet"])
 def test_remat_policies_equal_no_remat(kind):
     images, masks, eps = batch(4)
     if kind == "vae":
-        kw, eps = vae_config(), eps[None]
+        kw, eps, policies = vae_config(), eps[None], ("full", "save_convs")
     else:
-        kw, eps = vae_config(model_type="basic", bilinear=True), None
+        kw, eps, policies = vae_config(model_type="basic", bilinear=True), None, ("full",)
     base_aux, base_grads, base_sd, base_calls = run_step(TrainConfig(**kw), images, masks, eps)
-    assert base_calls == (21 if kind == "vae" else 18)      # resnet18: 13 encoder + 8 decoder
-    for policy, calls in (("full", 2 * base_calls), ("save_convs", base_calls)):
+    # resnet18: 13 kernel convs + 3 strided in the encoder, 8 in the decoder
+    assert base_calls == (24 if kind == "vae" else 18)
+    for policy in policies:
         aux, grads, sd, n = run_step(TrainConfig(**kw, use_remat=True, remat_policy=policy),
                                      images, masks, eps)
-        assert n == calls, (policy, n)
+        assert n == (2 * base_calls if policy == "full" else base_calls), (policy, n)
         for k in ("loss", "recon_loss", "kl_loss"):
             np.testing.assert_allclose(aux[k].item(), base_aux[k].item(), atol=1e-6, err_msg=k)
         assert set(grads) == set(base_grads)

@@ -3,9 +3,9 @@
 4 down and 4 up stages, 64 -> 1024 channels (1024 // 2 at the bottom when
 bilinear), attention-gated skips, a 1x1 out conv.
 
-``use_remat`` rematerializes each stage in the backward (``ops/remat.py``;
-the JAX ``nn.remat`` of ``unet.py:30-36``), with ``remat_policy`` 'full' or
-'save_convs'.  Per forward: 18 fused conv + moments launches in training,
+``use_remat`` rematerializes each stage in the backward (``ops/remat.py``,
+policy 'full'; the JAX ``nn.remat`` of ``unet.py:30-36``, which takes no
+policy).  Per forward: 18 fused conv + moments launches in training,
 18 ``bn_relu`` launches in eval, and with ``bilinear`` 4 resizes.
 """
 
@@ -24,13 +24,12 @@ class UNet(nn.Module):
     H, W] (channels_last)."""
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1, bilinear: bool = False,
-                 use_remat: bool = False, remat_policy: str = "full"):
+                 use_remat: bool = False):
         super().__init__()
         self.n_channels = n_channels
         self.n_classes = n_classes
         self.bilinear = bilinear
         self.use_remat = use_remat
-        self.remat_policy = remat.check_policy(remat_policy)
         factor = 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, 64)
         self.down1 = Down(64, 128)
@@ -45,7 +44,7 @@ class UNet(nn.Module):
 
     def _stage(self, stage: nn.Module, *args) -> torch.Tensor:
         if self.use_remat:
-            return remat.checkpoint(stage, *args, policy=self.remat_policy)
+            return remat.checkpoint(stage, *args)
         return stage(*args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -64,15 +63,13 @@ class UNet(nn.Module):
 
 
 def build_unet(n_channels: int = 3, n_classes: int = 1, bilinear: bool = False,
-               use_remat: bool = False, remat_policy: str = "full", seed: int = 0,
-               device=None) -> UNet:
+               use_remat: bool = False, seed: int = 0, device=None) -> UNet:
     """A ``UNet`` with PyTorch-default init drawn from `seed`, in eval mode
     and channels_last memory on `device` (CUDA unless ``"cpu"``)."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = UNet(n_channels, n_classes, bilinear=bilinear, use_remat=use_remat,
-                     remat_policy=remat_policy)
+        model = UNet(n_channels, n_classes, bilinear=bilinear, use_remat=use_remat)
     if device.type == "cuda":
         use_fp32_numerics()
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -24,7 +24,9 @@ package has no Pallas kernel for it.
 
 Inside the recompute of a rematerialized block (``ops/remat.py``) a
 training-mode :class:`BatchNorm` normalizes as it did in the forward but
-leaves its running statistics alone, so that they move once a step.
+leaves its running statistics alone, so that they move once a step; under
+``'save_convs'`` :func:`conv3x3_bn` hands back the conv products the
+forward kept instead of computing them again.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
-from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats
+from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats, fold_cotangents
 
 
 class Conv(nn.Conv2d):
@@ -83,7 +86,9 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and remat.bn_frozen():
             # the same call on copies of the running statistics: the same
-            # output, and the update lands in the copies
+            # output, and the update lands in the copies.  Not None instead:
+            # batch_norm would then save two tensors fewer for the backward
+            # than in the forward, and the checkpoint matches them by count
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
         return super().forward(x)
@@ -119,15 +124,61 @@ def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return fused_bn_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
 
 
+class _KeptConv(torch.autograd.Function):
+    """The recompute's stand-in for a bias-free conv under remat
+    ``'save_convs'``: returns the products the forward kept (y, or the
+    kernel's y, s, q) with the conv's backward.  It saves what the conv it
+    stands for saved (x and the weight, and the kernel's y), so that the
+    checkpoint matches the recompute's saved tensors to the forward's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, kept):
+        ctx.set_materialize_grads(False)
+        ctx.conv = (list(stride), list(padding))
+        y = kept[:1] if len(kept) == 3 else ()      # the kernel also saves its y
+        ctx.save_for_backward(x, weight, *y)
+        return kept
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        x, weight, *y = ctx.saved_tensors
+        if all(g is None for g in grads):
+            return None, None, None, None, None
+        if y:       # the kernel's (y, s, q): fold the moments' cotangents
+            g = fold_cotangents(y[0], *grads, x.dtype)
+        else:
+            g = grads[0].contiguous(memory_format=torch.channels_last)
+        stride, padding = ctx.conv
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            g, x, weight, None, stride, padding, [1, 1], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None
+
+
+def _kept(conv: Conv, x: torch.Tensor, weight: torch.Tensor, compute):
+    """``compute()``, kept for the recompute under remat ``'save_convs'``."""
+    return remat.kept(compute, lambda kept: _KeptConv.apply(x, weight, conv.stride,
+                                                            conv.padding, kept))
+
+
 def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.Tensor:
-    """bn(conv(x)), then ReLU if `relu`.  A training-mode BN after a conv
-    of the kernel's shape takes the fused conv + moments kernel; anything
-    else (eval mode, a strided conv) keeps ``F.conv2d`` and, for a BN ->
-    ReLU pair in eval mode, the ``bn_relu`` kernel, as before."""
-    if bn.training and conv.takes_bn_stats_kernel():
-        y, s, q = conv3x3_bn_stats(x, conv.weight.to(x.dtype))
+    """bn(conv(x)) of a bias-free 3x3 conv, then ReLU if `relu`.  A
+    training-mode BN after a conv of the kernel's shape takes the fused
+    conv + moments kernel; anything else (eval mode, a strided conv) keeps
+    ``F.conv2d`` and, for a BN -> ReLU pair in eval mode, the ``bn_relu``
+    kernel, as before.  In training the conv's products are the ones remat
+    ``'save_convs'`` keeps."""
+    if conv.bias is not None:
+        raise ValueError("conv3x3_bn takes a bias-free conv")
+    if not bn.training:
+        y = conv(x)
+        return bn_relu(y, bn) if relu else bn(y)
+    w = conv.weight.to(x.dtype)
+    if conv.takes_bn_stats_kernel():
+        y, s, q = _kept(conv, x, w, lambda: conv3x3_bn_stats(x, w))
         y = bn.forward_moments(y, s, q)
-        return F.relu(y) if relu else y
-    if relu:
-        return bn_relu(conv(x), bn)
-    return bn(conv(x))
+    else:
+        (y,) = _kept(conv, x, w, lambda: (conv._conv_forward(x, w, None),))
+        y = bn(y)
+    return F.relu(y) if relu else y

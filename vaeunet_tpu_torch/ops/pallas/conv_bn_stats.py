@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from vaeunet_tpu_torch.ops import _ext, remat
+from vaeunet_tpu_torch.ops import _ext
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # output tile of csrc/conv_bn_stats.cu (kTH x kTW); one scratch row per tile
@@ -186,11 +186,9 @@ def fold_cotangents(y: torch.Tensor, gy, gs, gq, dtype: torch.dtype) -> torch.Te
 class _Conv3x3BnStats(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, saved):
+    def forward(ctx, x, weight):
         ctx.set_materialize_grads(False)
-        if saved is not None:           # a product kept by remat 'save_convs'
-            y, s, q = saved
-        elif x.device.type == "cpu":
+        if x.device.type == "cpu":
             y, s, q = conv3x3_bn_stats_plain(x, weight)
         elif x.device.type == "cuda":
             y, s, q = _forward_cuda(x, weight)
@@ -204,19 +202,17 @@ class _Conv3x3BnStats(torch.autograd.Function):
     def backward(ctx, gy, gs, gq):
         x, weight, y = ctx.saved_tensors
         if gy is None and gs is None and gq is None:
-            return None, None, None
+            return None, None
         g = fold_cotangents(y, gy, gs, gq, x.dtype)
         dx, dw, _ = torch.ops.aten.convolution_backward(
             g, x, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return dx, dw, None
+        return dx, dw
 
 
 def conv3x3_bn_stats(x: torch.Tensor, weight: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, s, q) of a 3x3 pad-1 stride-1 bias-free convolution; see the
-    module docstring.  Differentiable in x and weight through all three.
-    Inside a remat ``'save_convs'`` block the recompute gets the forward's
-    product back instead of a second launch (``ops/remat.py``)."""
+    module docstring.  Differentiable in x and weight through all three."""
     _check(x, weight)
-    return remat.kept(lambda saved: _Conv3x3BnStats.apply(x, weight, saved))
+    return _Conv3x3BnStats.apply(x, weight)

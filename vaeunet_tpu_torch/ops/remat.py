@@ -6,12 +6,15 @@ policies:
 
 - ``'full'``: the block keeps nothing for the backward but its inputs; the
   backward runs the block's forward again.
-- ``'save_convs'``: the products of the fused conv + moments kernel
-  (``ops/pallas/conv_bn_stats.py``: y and its sums) are kept, the values
-  the JAX package names ``checkpoint_name(y, 'remat_save')`` and keeps by
-  ``save_only_these_names('remat_save')``.  In the recompute each such conv
-  hands back its kept product instead of running again, and only the BN ->
-  ReLU epilogues and the block's other work run again.
+- ``'save_convs'``: the products of every 3x3 conv that feeds a BN are
+  kept: the fused conv + moments kernel's (y and its sums,
+  ``ops/pallas/conv_bn_stats.py``) and the strided convs' y, the values
+  the JAX package names ``checkpoint_name(y, 'remat_save')`` in its blocks
+  and keeps by ``save_only_these_names('remat_save')``.  In the recompute
+  each such conv hands back its kept product instead of running again
+  (``ops/layers.py::conv3x3_bn``), and only the BN -> ReLU epilogues and
+  the block's other work run again.  The JAX decoder block also names its
+  upsampled input and its gated skip; the port recomputes those two.
 
 Both go through ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``.
 Its recompute runs every training-mode BN a second time, which would move
@@ -53,23 +56,24 @@ class _KeptProducts:
         self.values: List[Tuple[torch.Tensor, ...]] = []
         self.replay: Optional[int] = None     # next index while recomputing
 
-    def take(self, compute: Callable) -> Tuple[torch.Tensor, ...]:
+    def take(self, compute: Callable, replay: Callable) -> Tuple[torch.Tensor, ...]:
         if self.replay is None:
-            out = compute(None)
+            out = compute()
             self.values.append(tuple(t.detach() for t in out))
             return out
         saved = self.values[self.replay]
         self.replay += 1
-        return compute(tuple(t.detach() for t in saved))
+        return replay(tuple(t.detach() for t in saved))
 
 
-def kept(compute: Callable) -> Tuple[torch.Tensor, ...]:
-    """``compute(saved)`` -> a tuple of tensors, where `saved` is None
-    (compute them) or the tuple a forward kept (hand it back, with the
-    autograd node the backward needs).  Outside a ``'save_convs'`` block
-    this is ``compute(None)``."""
+def kept(compute: Callable, replay: Callable) -> Tuple[torch.Tensor, ...]:
+    """``compute()`` -> a tuple of tensors.  In the recompute of a
+    ``'save_convs'`` block, ``replay(saved)`` instead, with the tuple its
+    forward kept: it must hand `saved` back with the autograd node the
+    backward needs, saving the tensors ``compute`` saved (the checkpoint
+    matches them by order and shape).  Anywhere else ``compute()``."""
     store = getattr(_STATE, "store", None)
-    return compute(None) if store is None else store.take(compute)
+    return compute() if store is None else store.take(compute, replay)
 
 
 @contextlib.contextmanager

@@ -20,9 +20,11 @@ would.
 
 :func:`build_model` builds the config's model (``model_type`` 'resnet':
 the VAE-UNet; 'basic': the plain UNet) and honours or refuses each of its
-architecture fields: ``bilinear`` (the plain UNet's), ``use_remat`` and
-``remat_policy`` (both), ``deep_supervision`` (the VAE-UNet's; the JAX
-step ignores it for the plain UNet, the port refuses it).
+architecture fields: ``bilinear`` (the plain UNet's), ``use_remat`` (both),
+``remat_policy`` (the VAE-UNet's; the plain UNet's remat is always
+'full', as in the JAX package, so the port refuses 'save_convs' there),
+``deep_supervision`` (the VAE-UNet's; the JAX step ignores it for the
+plain UNet, the port refuses it).
 """
 
 from __future__ import annotations
@@ -112,9 +114,12 @@ def build_model(config: TrainConfig, seed: int = 0,
         if config.deep_supervision:
             raise ValueError("deep_supervision needs model_type='resnet': the plain UNet has "
                              "no auxiliary heads")
+        if config.use_remat and config.remat_policy != "full":
+            raise ValueError(f"remat_policy {config.remat_policy!r} needs model_type='resnet': "
+                             "the plain UNet rematerializes its stages in full")
         return build_unet(n_channels=config.n_channels, n_classes=config.n_classes,
                           bilinear=config.bilinear, use_remat=config.use_remat,
-                          remat_policy=config.remat_policy, seed=seed, device=device)
+                          seed=seed, device=device)
     if config.model_type != "resnet":
         raise ValueError(f"model_type {config.model_type!r}: expected 'resnet' or 'basic'")
     if config.bilinear:
