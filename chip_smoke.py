@@ -48,7 +48,21 @@ the card, in phases that each fail the run with a non-zero exit:
 11. the same for the resnet50 VAE-UNet with deep supervision;
 12. remat: one fp32 resnet34 step at 256^2 batch 4 without remat, with
    'full' and with 'save_convs': the same loss, BN statistics and
-   gradient, BN statistics moved once, less memory with 'full'.
+   gradient, BN statistics moved once, less memory with 'full';
+13. the training loop (``training.loop.train_model``) on a synthetic IDRiD
+   set written from a seed into a temporary directory (4 train and 2 val
+   fundus JPGs at IDRiD's 2848x4288 with EX TIF masks), the flagship at full
+   width in bf16 at --scale 0.5, patch 512, batch 16, lr 1e-4, beta 0.001,
+   2 epochs, the image-level device cache and the augmentation on: the
+   native host library must build; one image-cache batch equals the host
+   loader's bit for bit; each augmentation transform on the card equals the
+   CPU's at the same parameters (tests/test_torch_augment.py's
+   tolerances); the indexed augmented step moves every parameter; the
+   loop's launches equal 37 conv, 5 resize (1 row), 5 resize backward and 2
+   noise draws a train step plus 30 bn_relu, 5 resize (1 row) and 1 noise
+   draw an eval step; a checkpoint round trip is exact; a resume from
+   ``best`` runs one more epoch from the saved epoch + 1; one epoch runs
+   host-fed (no cache, pinned copies).
 
 Phase 3 also holds the conv kernel in both types at every conv shape of the
 paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
@@ -57,8 +71,9 @@ forward and backward in both types, at the two shapes of those paths that
 the resnet34 step lacks (the resnet50 decoder's [16,2048,16,16] -> 32^2,
 the bilinear UNet's [16,64,256,256] -> 512^2), the one-channel resizes of
 those paths (the mask downsamples by 4, 8 and 16 and the request's
-upscale) bit for bit, and ``bn_relu`` at phase 9's fp32 shapes (its
-widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]).
+upscale) bit for bit, ``bn_relu`` at phase 9's fp32 shapes (its
+widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]), and the
+noise kernel at phase 13's augmentation shape [16,512,512,3].
 
 Serving and every comparison run in full fp32 (TF32 off for cuDNN
 convolutions and matmuls); the training step of phase 6 in bf16.  The last
@@ -70,15 +85,26 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
-from vaeunet_tpu_torch import build_model, predict_image, segmentation_distribution
+from vaeunet_tpu_torch import build_model, native, predict_image, segmentation_distribution
+from vaeunet_tpu_torch.data import IDRIDDataset, augment
+from vaeunet_tpu_torch.data.device_cache import (
+    ImageDeviceCache,
+    estimate_bytes,
+    estimate_image_bytes,
+)
 from vaeunet_tpu_torch import uncertainty_maps, use_fp32_numerics
 from vaeunet_tpu_torch.inference.tiled import compute_tile_grid
 from vaeunet_tpu_torch.models import build_unet
@@ -93,9 +119,13 @@ from vaeunet_tpu_torch.training import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    restore_checkpoint,
+    save_checkpoint,
+    train_model,
 )
 from vaeunet_tpu_torch.losses import make_criterion
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
+from vaeunet_tpu_torch.utils.tracking import Tracker
 from vaeunet_tpu_torch.vae_utils import to_nchw
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -110,6 +140,10 @@ N_REQUESTS = 3
 PHILOX_BOX_MULLER_OPS = 146   # 10 Philox rounds (~100 integer ops) + uniforms + log/sqrt/cos
 BN_RELU_OPS = 3               # mul, add, max
 RESIZE_OPS = 9                # 3 lerps of (sub, mul, mul, add) sharing the (1 - lambda)
+
+
+# numbers one phase reports for a later one to print beside its own
+SUMMARY: dict = {}
 
 
 def log(msg: str) -> None:
@@ -429,8 +463,11 @@ def paired_ms(fns: dict, iters: int, rounds: int = 3) -> dict:
     return best
 
 
+AUG_NOISE_SHAPE = (16, 512, 512, 3)    # the augmentation's Gauss noise, one draw a step
+
+
 def kernel_noise(table: dict) -> None:
-    for shape in ((8192, 64), (3, 32), (1, 32)):
+    for shape in ((8192, 64), (3, 32), (1, 32), AUG_NOISE_SHAPE):
         z = reparam_mod.normal(shape, 11, "cuda")
         ref = reparam_mod.normal_plain(shape, 11, "cuda")
         torch.cuda.synchronize()
@@ -440,20 +477,22 @@ def kernel_noise(table: dict) -> None:
               f"normal {shape}: same seed gave different values")
         check(not torch.equal(z, reparam_mod.normal(shape, 12, "cuda")),
               f"normal {shape}: a new seed gave the same values")
-        if shape == (8192, 64):
+        if shape in ((8192, 64), AUG_NOISE_SHAPE):
             m, s = z.mean().item(), z.std().item()
             check(abs(m) < 0.01 and abs(s - 1) < 0.01, f"normal moments {m} {s}")
-            log(f"normal [8192, 64]: mean {m:.5f} std {s:.5f}")
+            log(f"normal {list(shape)}: mean {m:.5f} std {s:.5f}")
         n = z.numel()
         dev = torch.device("cuda")
         t = paired_ms({"kernel": lambda: reparam_mod.normal(shape, 11, dev),
-                       "randn": lambda: torch.randn(shape, device=dev)}, 1000)
+                       "randn": lambda: torch.randn(shape, device=dev)},
+                      100 if shape == AUG_NOISE_SHAPE else 1000)
         k_ms, l_ms = t["kernel"], t["randn"]
         # the launch alone into a tensor made beforehand: what is left of the
         # wrapper's time is its allocation and checks
         a_ms = time_ms(lambda: _ext.call("reparam", "vaeunet_normal", dev, z.data_ptr(), n, 11),
                        1000)
-        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"), 200)
+        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"),
+                       10 if shape == AUG_NOISE_SHAPE else 200)
         bnd, by = bound_ms(4 * n, PHILOX_BOX_MULLER_OPS * n)
         log(f"normal {list(shape)}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone "
             f"{a_ms:.4f} ms  plain {p_ms:.4f} ms  torch.randn {l_ms:.4f} ms  "
@@ -463,6 +502,10 @@ def kernel_noise(table: dict) -> None:
         _record(table, "normal", err=err, **(dict(
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
             shape="[1, 32]") if main else {}))
+        if shape == AUG_NOISE_SHAPE:
+            _record(table, "normal", augmentation_shape=dict(
+                shape=str(list(shape)), ms=k_ms, launch_alone_ms=a_ms, plain_ms=p_ms,
+                library_ms=l_ms, bound_ms=bnd, bound_by=by))
 
 
 def kernel_reparam(table: dict) -> None:
@@ -938,6 +981,7 @@ def phase_train() -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"losses {losses}")
     p50 = statistics.median(times)
+    SUMMARY["bare_step_p50"] = p50
     img_s = TRAIN_BATCH * TIMED_STEPS / sum(times)
     log(f"train steps: p50 {p50:.4f} s  max {max(times):.4f} s  all "
         f"{[round(t, 4) for t in times]}  loss {losses[0]:.5f} -> {losses[-1]:.5f}")
@@ -1293,6 +1337,260 @@ def phase_remat() -> dict:
     return total
 
 
+# ----- phase 13 ------------------------------------------------------------
+
+FUNDUS_SPLITS = (("train", 4), ("val", 2))
+LOOP_SCALE, LOOP_EPOCHS = 0.5, 2
+TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, resize=5, resize_row=1, resize_bwd=5, normal=2)
+EVAL_STEP_LAUNCHES = dict(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
+
+
+def write_fundus_set(root: Path, seed: int) -> None:
+    """IDRiD's layout at IDRiD's 2848x4288: JPG fundus images (a bright disk
+    cut at top and bottom, as IDRiD's are, with yellow exudate blobs) and
+    their EX masks as TIFs, from `seed`."""
+    rng = np.random.RandomState(seed)
+    h, w = IMAGE_HW
+    yy, xx = np.ogrid[:h, :w]
+    disk = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (0.6 * h) ** 2
+    for split, n in FUNDUS_SPLITS:
+        (root / "imgs" / split).mkdir(parents=True)
+        (root / "masks" / split / "EX").mkdir(parents=True)
+        for i in range(n):
+            img = np.zeros((h, w, 3), np.uint8)
+            img[disk] = (rng.randint(-20, 21, (int(disk.sum()), 3))
+                         + np.array([150, 70, 30])).clip(0, 255)
+            mask = np.zeros((h, w), np.uint8)
+            for _ in range(120):
+                cy = rng.randint(h // 14, h - h // 14)
+                cx = rng.randint(w // 5, w - w // 5)
+                r = rng.randint(max(2, h // 285), h // 47)
+                y0, x0 = cy - r, cx - r
+                by, bx = np.ogrid[-r:r + 1, -r:r + 1]
+                blob = (by ** 2 + bx ** 2 <= r * r) & disk[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1]
+                img[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1][blob] = (230, 210, 90)
+                mask[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1][blob] = 255
+            Image.fromarray(img).save(root / "imgs" / split / f"IDRiD_{i:02d}.jpg", quality=90)
+            Image.fromarray(mask).save(root / "masks" / split / "EX" / f"IDRiD_{i:02d}_EX.tif")
+
+
+def loop_config(root: Path, **kw) -> TrainConfig:
+    """The flagship at full width (bench.py:42-51's model and step): resnet34
+    VAE-UNet, latent 32, 'all', attention skips, bf16; --scale 0.5
+    --patch-size 512 --batch-size 16, accumulation 1, lr 1e-4, beta 0.001;
+    2 epochs with kl_anneal_epochs=2; device cache and augmentation on."""
+    base = dict(img_scale=LOOP_SCALE, epochs=LOOP_EPOCHS, kl_anneal_epochs=LOOP_EPOCHS,
+                beta=0.001, data_dir=str(root / "idrid"), lesion_type="EX", seed=0,
+                checkpoint_dir=str(root / "ckpt"))
+    base.update(kw)
+    return train_config(**base)
+
+
+def augment_checks(images: torch.Tensor, masks: torch.Tensor) -> None:
+    """Each transform on the card against the CPU at the same parameters:
+    flips, rot90 and masks exact; affine within 2^-7 at <= 0.1 % of the
+    values; gamma, colour, noise, blur, grid within 1e-6; CLAHE within 1e-5
+    except a bf16 flip of a LUT entry (<= 2^-8 x image / luma, <= 0.1 %).
+    The tolerances of tests/test_torch_augment.py."""
+    gen = torch.Generator().manual_seed(17)
+    p_cpu = augment.draw_params(gen, images.shape[0])
+    for k in ("contrast", "color", "affine", "noise", "blur", "grid"):
+        p_cpu[k] = torch.ones_like(p_cpu[k])             # every sample applies each transform
+    p_gpu = augment.params_to(p_cpu, "cuda")
+    p_cpu = augment.params_to(p_cpu, "cpu")
+    eps = reparam_mod.normal(images.shape, 5, "cuda")
+    cases = {
+        "flips": (lambda p, x, m, e: augment.apply_flips(x, m, p["do_h"], p["do_v"], p["rot_k"]),
+                  0.0),
+        "contrast": (lambda p, x, m, e: augment.apply_contrast(
+            x, p["contrast"], p["use_clahe"], p["clip"], p["gamma"]), None),
+        "color": (lambda p, x, m, e: augment.apply_color(
+            x, p["color"], p["use_bc"], p["alpha"], p["beta"], p["jit_b"], p["jit_c"],
+            p["jit_s"]), 1e-6),
+        "affine": (lambda p, x, m, e: augment.apply_affine(
+            x, m, p["affine"], p["scale"], p["tx"], p["ty"], p["theta"]), 2.0 ** -7),
+        "noise": (lambda p, x, m, e: augment.apply_noise(x, p["noise"], p["var"], e), 1e-6),
+        "blur": (lambda p, x, m, e: augment.apply_blur(
+            x, p["blur"], p["use_gauss"], p["use5"], p["direction"]), 1e-6),
+        "grid": (lambda p, x, m, e: augment.apply_grid(x, m, p["grid"], p["grid_x"],
+                                                       p["grid_y"]), 1e-6),
+    }
+    x_cpu, m_cpu, e_cpu = images.cpu(), masks.cpu(), eps.cpu()
+    for name, (fn, atol) in cases.items():
+        gpu = fn(p_gpu, images, masks, eps)
+        cpu = fn(p_cpu, x_cpu, m_cpu, e_cpu)
+        gpu, cpu = (gpu, cpu) if isinstance(gpu, tuple) else ((gpu,), (cpu,))
+        check(torch.equal(gpu[1].cpu(), cpu[1]) if len(gpu) > 1 else True,
+              f"augment {name}: masks differ between the card and the CPU")
+        diff = (gpu[0].cpu() - cpu[0]).abs()
+        if name == "contrast":
+            lum = 0.299 * x_cpu[..., 0] + 0.587 * x_cpu[..., 1] + 0.114 * x_cpu[..., 2]
+            room = 1e-5 + 2.0 ** -8 * x_cpu / lum.clamp(min=1e-6).unsqueeze(-1)
+            ok = bool((diff <= room).all()) and (diff > 1e-5).float().mean().item() <= 1e-3
+        elif name == "affine":
+            ok = diff.max().item() <= atol and (diff > 0).float().mean().item() <= 1e-3
+        else:
+            ok = diff.max().item() <= atol
+        log(f"augment {name} card vs CPU [16,512,512,3]: max err {diff.max().item():.3g}  "
+            f"values off {(diff > 0).float().mean().item():.2e}")
+        check(ok, f"augment {name}: card and CPU differ beyond the tolerance")
+
+
+def loop_launches(report: dict, val_batches: int) -> dict:
+    steps, validations = len(report["step_times"]), len(report["val_times"])
+    per_train, per_eval = launches(steps, **TRAIN_STEP_LAUNCHES), launches(
+        validations * val_batches, **EVAL_STEP_LAUNCHES)
+    return {k: per_train[k] + per_eval[k] for k in per_train}
+
+
+def run_loop(label: str, config: TrainConfig, datasets, root: Path, **kw) -> tuple:
+    """train_model with its launch counts held and its numbers printed."""
+    train_ds, val_ds = datasets
+    tracker = Tracker(run_dir=str(root / "runs" / label.replace(" ", "_")))
+    report: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_model(config, tracker=tracker, train_dataset=train_ds, val_dataset=val_ds,
+                        device="cuda", report=report, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _ext.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    val_batches = -(-len(val_ds) // config.batch_size)
+    expected = loop_launches(report, val_batches)
+    times = report["step_times"]
+    warm = times[1:] or times
+    losses = [json.loads(line)["train/total_loss"]
+              for line in (tracker.run_dir / "metrics.jsonl").read_text().splitlines()
+              if "train/total_loss" in line]
+    log(f"{label}: {wall:.1f} s, epochs {report['start_epoch']}-{config.epochs}, "
+        f"{report['steps_per_epoch']} steps an epoch, {len(times)} steps, "
+        f"{len(report['val_times'])} validations of {val_batches} batches")
+    log(f"{label} steps (host clock, end to end of consecutive steps, no sync a step): p50 "
+        f"{statistics.median(warm):.4f} s  max {max(warm):.4f} s  cold first "
+        f"{times[0]:.3f} s  ({config.batch_size * len(warm) / sum(warm):.1f} img/s)")
+    log(f"{label} validations (each ends in its metrics' fetch): "
+        f"{[round(v, 3) for v in report['val_times']]} s  peak memory {peak:.2f} GiB")
+    log(f"{label} losses: {[round(v, 4) for v in losses]}")
+    log(f"{label} launches: {counts}  expected {expected}")
+    check(len(losses) == len(times) and all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(counts == expected, f"{label}: launch counts {counts} differ from the code's {expected}")
+    return state, report, counts, tracker
+
+
+def phase_loop() -> dict:
+    """The training loop through ``train_model`` on a synthetic IDRiD set
+    at IDRiD's own size: the flagship at full width, the image-level device
+    cache and the augmentation on, 2 epochs; then a resume from ``best``
+    for one more epoch; then one epoch host-fed (no device cache, the
+    pinned copies).  -> the launch counts of the three runs."""
+    os.environ["WANDB_MODE"] = "disabled"       # the tracker stays offline
+    native.require()
+    total = launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_fundus_set(root / "idrid", seed=21)
+        log(f"loop data: {sum(n for _, n in FUNDUS_SPLITS)} fundus JPGs + EX TIFs at "
+            f"{IMAGE_HW[0]}x{IMAGE_HW[1]} written in {time.perf_counter() - t0:.1f} s")
+        config = loop_config(root)
+        t0 = time.perf_counter()
+        kw = dict(scale=LOOP_SCALE, patch_size=TRAIN_HW, lesion_type="EX",
+                  cache_dir=str(root / "cache"))
+        train_ds = IDRIDDataset(config.data_dir, split="train", balance_seed=config.seed, **kw)
+        val_ds = IDRIDDataset(config.data_dir, split="val", **kw)
+        log(f"dataset build (decode, scale {LOOP_SCALE}, patch index, uint8 cache): "
+            f"{time.perf_counter() - t0:.1f} s; train {len(train_ds)} patches "
+            f"({sum(r[3] for r in train_ds.patch_index)} with lesions), val {len(val_ds)}; "
+            f"native host ops: {native.available()}")
+        check(len(train_ds) >= 2 * TRAIN_BATCH, f"train set of {len(train_ds)} patches")
+
+        # one batch of the image cache = the host loader's (the native gather)
+        cache = ImageDeviceCache(train_ds, "cuda")
+        idx = np.random.RandomState(0).permutation(len(train_ds))[:TRAIN_BATCH]
+        images, masks = cache.make_gather()(
+            cache.images, cache.masks, torch.as_tensor(cache.batch_indices(idx), device="cuda"))
+        host = train_ds.gather_batch(idx)
+        check(torch.equal(images.cpu(), torch.from_numpy(host["image"]))
+              and torch.equal(masks.cpu(), torch.from_numpy(host["mask"])),
+              "a batch gathered from ImageDeviceCache differs from the host loader's")
+        log(f"image cache batch == host loader batch, bit for bit ({TRAIN_BATCH} patches)")
+        augment_checks(images, masks)
+        gen = torch.Generator().manual_seed(3)
+        aug_ms = time_ms(lambda: augment.augment_batch(gen, images, masks), 10)
+        rec = torch.as_tensor(cache.batch_indices(idx), device="cuda")
+        gather_ms = time_ms(lambda: cache.make_gather()(cache.images, cache.masks, rec), 20)
+        log(f"on the card, [16,512,512,3]: gather {gather_ms:.3f} ms  augment_batch "
+            f"{aug_ms:.3f} ms (CUDA events; phase 6's bare step p50 "
+            f"{SUMMARY.get('bare_step_p50', float('nan')):.4f} s)")
+
+        # the indexed, augmented step: a finite loss, every parameter moves
+        state = create_train_state(config, seed=0, device="cuda")
+        step = make_train_step(config, state.model, augment=True, indexed=True,
+                               gather=cache.make_gather())
+        before = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+        state, aux = step(state, cache.images, cache.masks, cache.batch_indices(idx), 0.001)
+        check(bool(torch.isfinite(aux["loss"])), f"indexed augmented step: loss {aux['loss']}")
+        first_step_moved_everything(state.model, before)
+        del state, step, before, cache, images, masks, rec
+        torch.cuda.empty_cache()
+
+        datasets = (train_ds, val_ds)
+        state, report, counts, _ = run_loop("loop", config, datasets, root)
+        check(isinstance(report["device_train"], ImageDeviceCache)
+              and isinstance(report["device_val"], ImageDeviceCache),
+              f"the loop chose {type(report['device_train']).__name__}, not ImageDeviceCache")
+        cache_bytes = report["device_train"].nbytes + report["device_val"].nbytes
+        est_image = estimate_image_bytes(train_ds) + estimate_image_bytes(val_ds)
+        est_patch = estimate_bytes(train_ds) + estimate_bytes(val_ds)
+        log(f"device cache: ImageDeviceCache, {cache_bytes / 2 ** 20:.1f} MiB uint8 (estimate "
+            f"{est_image / 2 ** 20:.1f}; the patch layout would take {est_patch / 2 ** 20:.1f})")
+        total = {k: total[k] + counts[k] for k in total}
+
+        # the state round-trips through a checkpoint on the card, bit for bit
+        check_dir = str(root / "round_trip")
+        save_checkpoint(check_dir, state, config, name="round_trip")
+        fresh = create_train_state(config, seed=1, device="cuda")
+        fresh, _ = restore_checkpoint(check_dir, fresh, name="round_trip")
+        sa, sb = state.model.state_dict(), fresh.model.state_dict()
+        oa, ob = state.optimizer.state_dict()["adamw"], fresh.optimizer.state_dict()["adamw"]
+        same = (all(torch.equal(sa[k], sb[k]) for k in sa)
+                and all(torch.equal(v, ob["state"][i][k]) for i, st in oa["state"].items()
+                        for k, v in st.items())
+                and torch.equal(state.generator.get_state(), fresh.generator.get_state())
+                and state.step == fresh.step)
+        check(same, "the restored state differs from the saved one")
+        log(f"checkpoint round trip: {len(sa)} model tensors (with BN buffers), "
+            f"{sum(len(st) for st in oa['state'].values())} AdamW tensors, the generator "
+            f"and step {state.step}: equal, bit for bit")
+        del state, fresh, report
+        torch.cuda.empty_cache()
+
+        # resume from best for one more epoch
+        run_dir = config.checkpoint_path()
+        saved = json.loads((Path(run_dir) / "host_state.json").read_text())
+        resume_config = loop_config(root, epochs=saved["epoch"] + 1)
+        state, report, counts, _ = run_loop("resumed loop", resume_config, datasets, root,
+                                            resume_from=run_dir)
+        check(report["start_epoch"] == saved["epoch"] + 1,
+              f"resumed at epoch {report['start_epoch']}, saved epoch {saved['epoch']}")
+        total = {k: total[k] + counts[k] for k in total}
+        del state, report
+        torch.cuda.empty_cache()
+
+        # host-fed: no device cache, pinned copies
+        host_config = loop_config(root, epochs=1, device_cache=False,
+                                  checkpoint_dir=str(root / "ckpt_host"))
+        state, report, counts, _ = run_loop("host-fed loop", host_config, datasets, root)
+        check(report["device_train"] is None, "the host-fed run used a device cache")
+        total = {k: total[k] + counts[k] for k in total}
+        del state, report
+        torch.cuda.empty_cache()
+    return total
+
+
 KERNELS = (
     ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:54"),
     ("reparam", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:87"),
@@ -1340,6 +1638,8 @@ def main() -> None:
     log(f"phases 4-8: {time.perf_counter() - t_start:.1f} s")
     path_counts = [counts, train_counts, fp32_counts, phase_unet_serve(), *phase_unet_train(),
                    phase_r50_train(), phase_remat()]
+    log(f"phases 9-12: {time.perf_counter() - t_start:.1f} s")
+    path_counts.append(phase_loop())
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]
@@ -1349,6 +1649,8 @@ def main() -> None:
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"], "shape": rec["shape"],
+                        **({"augmentation_shape": rec["augmentation_shape"]}
+                           if "augmentation_shape" in rec else {}),
                         **({"wrapper_ms": rec["wrapper_ms"]} if "wrapper_ms" in rec else {})})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

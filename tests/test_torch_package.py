@@ -32,7 +32,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "vaeunet_tpu_torch.training.step, vaeunet_tpu_torch.training.schedule, "
             "vaeunet_tpu_torch.ops.pallas.conv_bn_stats, vaeunet_tpu_torch.utils.profiling, "
             "vaeunet_tpu_torch.models.parts, vaeunet_tpu_torch.models.unet, "
-            "vaeunet_tpu_torch.models.resnet, vaeunet_tpu_torch.ops.remat; "
+            "vaeunet_tpu_torch.models.resnet, vaeunet_tpu_torch.ops.remat, "
+            "vaeunet_tpu_torch.data, vaeunet_tpu_torch.data.augment, "
+            "vaeunet_tpu_torch.data.device_cache, vaeunet_tpu_torch.data.fundus, "
+            "vaeunet_tpu_torch.native, vaeunet_tpu_torch.training.loop, "
+            "vaeunet_tpu_torch.training.checkpoint, vaeunet_tpu_torch.utils.tracking, "
+            "vaeunet_tpu_torch.cli.train; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")

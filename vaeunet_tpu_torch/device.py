@@ -47,3 +47,20 @@ def check_serving_model(model: torch.nn.Module, device: torch.device) -> None:
     p = next(model.parameters())
     if p.device.type != device.type:
         raise ValueError(f"model is on {p.device}, the call asked for {device}")
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, on any device: with a Python number for a
+    divisor, CUDA tensors multiply by its reciprocal instead (one more
+    rounding), so the divisor goes in as a 0-dim tensor on x's device."""
+    return x / x.new_full((), d)
+
+
+def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the device: on CUDA
+    through pinned memory and a ``non_blocking`` copy (a copy from pageable
+    memory would wait for the stream; the caching host allocator keeps the
+    pinned block until the copy has run)."""
+    if device.type != "cuda" or not t.is_cpu:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

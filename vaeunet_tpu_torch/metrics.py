@@ -39,6 +39,20 @@ def dice_score(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False,
     return torch.where(denominator == 0, torch.ones_like(dice), dice)
 
 
+def multiclass_dice_score(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False):
+    """Dice with the class axis (axis 1) flattened into the batch
+    (metrics.py:38-41)."""
+    return dice_score(pred.reshape(-1, *pred.shape[2:]), target.reshape(-1, *target.shape[2:]),
+                      epsilon, apply_sigmoid)
+
+
+def dice_loss_metric(pred, target, multiclass: bool = False):
+    """1 - hard Dice (metrics.py:44-47; the trainable soft Dice is in
+    ``losses.py``)."""
+    fn = multiclass_dice_score if multiclass else dice_score
+    return 1.0 - fn(pred, target)
+
+
 def iou_score(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False, valid=None):
     p, t, _ = _binarize(pred, target, apply_sigmoid, valid)
     intersection = torch.sum(p * t)

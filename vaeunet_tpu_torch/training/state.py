@@ -4,7 +4,8 @@
 The JAX package keeps params, BN statistics, optimizer state and PRNG key
 in one immutable pytree; here the model holds its parameters and running
 statistics, the optimizer its moments, and a ``torch.Generator`` the
-latent noise's seed stream, all updated in place by the train step.
+seed stream of the latent noise and of the augmentation, all updated in
+place by the train step.
 
 The optimizer is the JAX package's ``optax.chain(clip_by_global_norm(1.0),
 adamw(...))`` (``state.py:41-49``): the gradients are scaled by
@@ -138,7 +139,9 @@ def create_train_state(config: TrainConfig, seed: int = 0,
                        device=None) -> TrainState:
     """A fresh state: the model from `seed` (or from converted flax
     `variables`, a ``{'params', 'batch_stats'}`` tree), its optimizer, and
-    a generator seeded from `seed` for the latent noise."""
+    a CPU generator seeded from `seed` that draws the train step's random
+    numbers: the latent noise's seeds and, with ``augment=True``, the
+    augmentation's flags, parameters and noise seed."""
     device = resolve_device(device)
     model = build_model(config, seed=seed, device=device)
     if variables is not None:

@@ -29,9 +29,18 @@ Images and masks come NHWC, as the JAX step takes them ([B, H, W, 3] and
 [B, H, W, n_classes]); the model sees NCHW in channels_last memory, a free
 view of the same bytes.  beta is a plain float.
 
-Not ported yet: the device-cache ``indexed`` variant, ``augment=True``,
-``multi_temp_training_step`` and the data-parallel ``axis_name``
-all-reduce.
+``augment=True`` runs the on-device policy (``data/augment.py``) on the
+whole effective batch inside the step, before the forward, its flags and
+noise drawn from ``state.generator`` ahead of the latent draws
+(``step.py:122-131``).  ``indexed=True`` takes the batch from a device cache
+instead of the host: ``step(state, data_images, data_masks, idx, beta)``,
+the batch gathered by ``gather`` (a cache's ``make_gather()``; default the
+patch layout's ``gather_batch_device``), as ``step.py:183-194,276-287``.
+
+``multi_temp_training_step`` (``step.py:201-229``) blends the standard loss
+with the loss of the mean tempered predictions.
+
+Not ported yet: the data-parallel ``axis_name`` all-reduce.
 """
 
 from __future__ import annotations
@@ -41,13 +50,16 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from vaeunet_tpu_torch.device import as_image
+from vaeunet_tpu_torch.data.augment import augment_batch
+from vaeunet_tpu_torch.data.device_cache import gather_batch_device
+from vaeunet_tpu_torch.device import as_image, host_to_device
 from vaeunet_tpu_torch.losses import kl_with_free_bits, make_criterion
 from vaeunet_tpu_torch.metrics import get_all_metrics
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.training.config import TrainConfig
 from vaeunet_tpu_torch.training.state import TrainState
+from vaeunet_tpu_torch.vae_utils import mean_tempered_logits
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -99,8 +111,13 @@ def forward_loss(model: torch.nn.Module, criterion: Callable, config: TrainConfi
     return loss, aux
 
 
+def _index_tensor(idx, device: torch.device) -> torch.Tensor:
+    return host_to_device(torch.as_tensor(idx, dtype=torch.int64), device)
+
+
 def make_train_step(config: TrainConfig, model: torch.nn.Module,
-                    criterion: Optional[Callable] = None):
+                    criterion: Optional[Callable] = None, augment: bool = False,
+                    indexed: bool = False, gather: Optional[Callable] = None):
     """-> ``step(state, images, masks, beta, eps=None) -> (state, aux)``,
     one optimizer step on `model` (the state's model), in place.
     ``images`` is [accum * micro, H, W, C]; ``eps``, if given, is the
@@ -109,9 +126,14 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
     holds ``loss``, ``recon_loss``, ``kl_loss`` (means over microbatches)
     and ``mu``, ``logvar`` [B, latent_dim], all detached.
 
+    ``augment``: the images and masks go through ``augment_batch`` on the
+    device first.  ``indexed``: ``step(state, data_images, data_masks, idx,
+    beta, eps=None)``, the batch ``gather(data_images, data_masks, idx)``
+    from a device cache (host indices in one copy).
+
     ``step.compute_gradients(state, images, masks, beta, eps=None) ->
-    aux`` stops before the clip: the parameters' ``.grad`` then hold the
-    mean of the microbatch gradients.
+    aux`` (the non-indexed form) stops before the clip: the parameters'
+    ``.grad`` then hold the mean of the microbatch gradients.
     """
     criterion = criterion or make_criterion(config.lesion_type, config.loss)
     accum = max(1, config.gradient_accumulation_steps)
@@ -129,8 +151,11 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
                           eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model.train()
         device = _device(model)
-        x = to_model_layout(images, device)
+        images = as_image(images, device)
         m = torch.as_tensor(masks, dtype=torch.float32, device=device)
+        if augment:
+            images, m = augment_batch(state.generator, images, m)
+        x = to_model_layout(images, device)
         b = x.shape[0]
         micro = b // accum
         if micro * accum != b:
@@ -172,12 +197,55 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
         state.step += 1
         return state, aux
 
+    if indexed:
+        gather = gather or gather_batch_device
+
+        def indexed_step(state: TrainState, data_images: torch.Tensor,
+                         data_masks: torch.Tensor, idx, beta: float,
+                         eps: Optional[torch.Tensor] = None):
+            images, masks = gather(data_images, data_masks,
+                                   _index_tensor(idx, data_images.device))
+            return step(state, images, masks, beta, eps)
+
+        return indexed_step
     step.compute_gradients = compute_gradients
     return step
 
 
+def multi_temp_training_step(config: TrainConfig, model: torch.nn.Module, images, true_masks,
+                             generator: Optional[torch.Generator], temps=(1.0, 3.0),
+                             weight: float = 0.3, num_samples: int = 3,
+                             eps: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Multi-temperature objective (reference train.py:137-160, JAX
+    ``step.py:201-229``): (1 - weight) * the criterion of an eval-mode
+    forward + weight * the mean over `temps` of the criterion of the mean
+    logits of `num_samples` tempered draws.  Differentiable; the noise
+    comes from `generator`, or from `eps` = (eps of the forward [B, D],
+    then one [num_samples, B, D] per temperature).
+    -> (total_loss, {'standard_loss', 'multi_temp_loss'})"""
+    criterion = make_criterion(config.lesion_type)
+    device = _device(model)
+    model.eval()
+    x = to_model_layout(images, device)
+    masks = torch.as_tensor(true_masks, dtype=torch.float32, device=device)
+    eps = list(eps) if eps is not None else [None] * (len(temps) + 1)
+    if isinstance(model, UNetResNet):
+        logits, _, _ = model(x, generator=generator, eps=eps[0])
+    else:
+        logits = model(x)
+    standard_loss = criterion(logits.float().permute(0, 2, 3, 1), masks)
+    multi = torch.zeros((), device=device)
+    for t, e in zip(temps, eps[1:]):
+        pred = mean_tempered_logits(model, x, generator, t, num_samples, eps=e)
+        multi = multi + criterion(pred.float(), masks)
+    multi = multi / len(temps)
+    total = (1 - weight) * standard_loss + weight * multi
+    return total, {"standard_loss": standard_loss, "multi_temp_loss": multi}
+
+
 def make_eval_step(config: TrainConfig, model: torch.nn.Module,
-                   apply_sigmoid_for_metrics: bool = False):
+                   apply_sigmoid_for_metrics: bool = False, indexed: bool = False,
+                   gather: Optional[Callable] = None):
     """Validation step (``step.py:232-274``, reference evaluate.py:20-101).
 
     ``eval_step(images, masks, generator=None, valid=None, eps=None) ->
@@ -186,7 +254,9 @@ def make_eval_step(config: TrainConfig, model: torch.nn.Module,
     metrics on raw logits at 0.5 unless `apply_sigmoid_for_metrics`, the
     logits resized to the mask's H x W on a mismatch, and ``valid`` ([B]
     0/1) dropping padded rows.  logits come back NHWC fp32.  The plain
-    UNet's logits are its forward's (``step.py:261-265``).
+    UNet's logits are its forward's (``step.py:261-265``).  ``indexed``:
+    ``eval_step(data_images, data_masks, idx, generator=None, valid=None,
+    eps=None)``, the batch gathered from a device cache.
     """
     is_vae = isinstance(model, UNetResNet)
 
@@ -213,4 +283,16 @@ def make_eval_step(config: TrainConfig, model: torch.nn.Module,
                                   valid=valid)
         return metrics, logits
 
+    if indexed:
+        gather = gather or gather_batch_device
+
+        @torch.inference_mode()
+        def indexed_step(data_images: torch.Tensor, data_masks: torch.Tensor, idx,
+                         generator: Optional[torch.Generator] = None, valid=None,
+                         eps: Optional[torch.Tensor] = None):
+            images, masks = gather(data_images, data_masks,
+                                   _index_tensor(idx, data_images.device))
+            return step(images, masks, generator, valid, eps)
+
+        return indexed_step
     return step

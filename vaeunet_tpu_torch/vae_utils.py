@@ -78,28 +78,38 @@ def encode_images(model: UNetResNet, images: torch.Tensor) -> Tuple[torch.Tensor
         return model.encode(to_nchw(images))
 
 
+def mean_tempered_logits(model: UNetResNet, x: torch.Tensor,
+                         generator: Optional[torch.Generator], temperature: float = 1.0,
+                         num_samples: int = 3, eps: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mean decoder logits [B,H,W,C] over `num_samples` tempered draws for
+    NCHW `x`, in the caller's grad mode.  The encoder runs once; the N
+    samples are one decoder batch of N*B (the JAX package vmaps over them).
+    With strategy 'none', z = mu.  Under autograd the noise is drawn as eps
+    (the fused draw kernel has no backward)."""
+    b = x.shape[0]
+    mu, logvar, features = model.encode_with_features(x)
+    if model.should_sample or model.latent_injection != "none":
+        if eps is None and torch.is_grad_enabled():
+            eps = gaussian_like(generator, (num_samples, *mu.shape), mu.device)
+        zs = sample_latents(mu, logvar, generator, temperature, num_samples, eps=eps)
+    else:
+        zs = mu[None].expand(num_samples, *mu.shape)
+    feats = [f.repeat(num_samples, 1, 1, 1) for f in features]
+    logits = model.decode_features(zs.reshape(num_samples * b, -1), feats,
+                                   output_hw=tuple(x.shape[2:]))
+    preds = logits.view(num_samples, b, *logits.shape[1:])
+    return to_nhwc(preds.mean(dim=0))
+
+
 def generate_predictions(model: UNetResNet, images: torch.Tensor,
                          generator: Optional[torch.Generator], temperature: float = 1.0,
                          num_samples: int = 3, eps: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Mean decoder logits [B,H,W,C] over `num_samples` tempered draws.
-
-    The encoder runs once; the N samples are one decoder batch of N*B (the
-    JAX package vmaps over them).  With strategy 'none', z = mu.
-    """
+    """:func:`mean_tempered_logits` of NHWC `images` under inference mode."""
     with torch.inference_mode():
-        x = to_nchw(images)
-        b = x.shape[0]
-        mu, logvar, features = model.encode_with_features(x)
-        if model.should_sample or model.latent_injection != "none":
-            zs = sample_latents(mu, logvar, generator, temperature, num_samples, eps=eps)
-        else:
-            zs = mu[None].expand(num_samples, *mu.shape)
-        feats = [f.repeat(num_samples, 1, 1, 1) for f in features]
-        logits = model.decode_features(zs.reshape(num_samples * b, -1), feats,
-                                       output_hw=tuple(x.shape[2:]))
-        preds = logits.view(num_samples, b, *logits.shape[1:])
-        return to_nhwc(preds.mean(dim=0))
+        return mean_tempered_logits(model, to_nchw(images), generator, temperature,
+                                    num_samples, eps)
 
 
 def calculate_latent_stats(mu: torch.Tensor, logvar: torch.Tensor) -> Dict[str, torch.Tensor]:
