@@ -62,7 +62,23 @@ the card, in phases that each fail the run with a non-zero exit:
    noise draws a train step plus 30 bn_relu, 5 resize (1 row) and 1 noise
    draw an eval step; a checkpoint round trip is exact; a resume from
    ``best`` runs one more epoch from the saved epoch + 1; one epoch runs
-   host-fed (no cache, pinned copies).
+   host-fed (no cache, pinned copies);
+14. the analysis path through its CLIs, on phase 13's temporary tree (which
+   ``main`` holds) with a test split of 2 fundi at 2848x4288 added from a
+   seed: phase 13's ``best`` run dir and the same weights saved as a
+   reference-format .pth load alike (``compat.load_model``: equal state
+   dicts, logits within 1e-6); ``cli.analyze`` (analyze_model.py's request:
+   --scale 1.0, tiles 512/100, N=10, T=1, tile batch 4, --extended-metrics,
+   the global plots) on one fundus, whose 13-column CSV must be finite, the
+   6 global PNGs present and the spill dir gone; ``fused_probability`` of
+   one fundus at scales 1.0 and 0.5 (max fusion at least each member's
+   mean, an expected-area threshold in (0, 1]); ``cli.visualize`` at
+   --scale 0.5 (3 PNGs); ``cli.evaluate`` on the val split at --scale 0.5,
+   patches of 512 (finite metrics); ``cli.predict`` with a plain-UNet .pth
+   on a fundus PNG (a 2848x4288 mask equal to predict_image + resize +
+   threshold on the same weights).  Each step's launches are held to the
+   code's, and the request's, the host metrics' and the global stage's
+   times printed beside the card's name and power limit.
 
 Phase 3 also holds the conv kernel in both types at every conv shape of the
 paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
@@ -83,6 +99,7 @@ JSON.  Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -94,20 +111,28 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 import torch
 import torch.nn.functional as F
 from PIL import Image
 
 from vaeunet_tpu_torch import build_model, native, predict_image, segmentation_distribution
+from vaeunet_tpu_torch.cli import analyze as analyze_cli
+from vaeunet_tpu_torch.cli import evaluate as evaluate_cli
+from vaeunet_tpu_torch.cli import predict as predict_cli
+from vaeunet_tpu_torch.cli import visualize as visualize_cli
+from vaeunet_tpu_torch.compat import load_model
 from vaeunet_tpu_torch.data import IDRIDDataset, augment
+from vaeunet_tpu_torch.data.dataset import load_image, preprocess_pil
 from vaeunet_tpu_torch.data.device_cache import (
     ImageDeviceCache,
     estimate_bytes,
     estimate_image_bytes,
 )
 from vaeunet_tpu_torch import uncertainty_maps, use_fp32_numerics
-from vaeunet_tpu_torch.inference.tiled import compute_tile_grid
-from vaeunet_tpu_torch.models import build_unet
+from vaeunet_tpu_torch.inference import expected_area_threshold, fused_probability
+from vaeunet_tpu_torch.inference.tiled import adaptive_overlap, compute_tile_grid
+from vaeunet_tpu_torch.models import UNetResNet, build_unet
 from vaeunet_tpu_torch.ops import _ext
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
@@ -125,6 +150,7 @@ from vaeunet_tpu_torch.training import (
 )
 from vaeunet_tpu_torch.losses import make_criterion
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
+from vaeunet_tpu_torch.utils import figures
 from vaeunet_tpu_torch.utils.tracking import Tracker
 from vaeunet_tpu_torch.vae_utils import to_nchw
 
@@ -816,22 +842,32 @@ def randomize_bn_stats(model: torch.nn.Module, seed: int) -> None:
                 m.running_var.uniform_(0.5, 2.0, generator=g)
 
 
+def tiled_decodes(hw, tile_batch: int, samples: int, overlap=OVERLAP) -> dict:
+    """Launches of `samples` tiled decodes of an image of `hw` (each tile
+    batch: 13 BN+ReLU pairs, z_initial + 4 x (z_proj, bn1, bn2), and 5
+    resizes, the logits' on the row kernel), with the tile encoder (17
+    resnet34 pairs a tile batch)."""
+    batches = -(-len(compute_tile_grid(*hw, PATCH, overlap)) // tile_batch)
+    return launches(bn_relu=17 * batches + 13 * batches * samples,
+                    resize=5 * batches * samples, resize_row=batches * samples)
+
+
+def request_launches(hw, tile_batch: int, samples: int = N_SAMPLES, overlap=OVERLAP) -> dict:
+    """One tiled ``segmentation_distribution``: the whole-image encoder, the
+    fused draw, the tiled decodes."""
+    return add_counts(launches(bn_relu=17, reparam=1),
+                      tiled_decodes(hw, tile_batch, samples, overlap))
+
+
+def add_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def expected_launches() -> dict:
-    """Launches the serving path's code implies for this phase."""
-    n_tiles = len(compute_tile_grid(*IMAGE_HW, PATCH, OVERLAP))
-    batches = -(-n_tiles // TILE_BATCH)
-    enc, dec = 17, 13          # resnet34 BN->ReLU pairs; z_initial + 4 x (z_proj, bn1, bn2)
-    # of a decode's 5 resizes, the logits' (one channel) takes the row kernel
-    per_request = {"bn_relu": enc * (1 + batches) + dec * batches * N_SAMPLES,
-                   "resize": 5 * batches * N_SAMPLES, "resize_row": batches * N_SAMPLES,
-                   "reparam": 1, "normal": 0, "resize_bwd": 0, "conv_bn_stats": 0,
-                   "conv_bn_stats_fp32": 0}
-    expected = {k: v * N_REQUESTS for k, v in per_request.items()}
-    expected["bn_relu"] += enc + dec        # one predict_image at 512^2
-    expected["resize"] += 5
-    expected["resize_row"] += 1
-    expected["normal"] += 1
-    return expected
+    """Launches the serving path's code implies for this phase: the
+    requests, and one sampled predict_image at 512^2."""
+    return add_counts(*[request_launches(IMAGE_HW, TILE_BATCH)] * N_REQUESTS,
+                      launches(bn_relu=17 + 13, resize=5, resize_row=1, normal=1))
 
 
 def phase_slice(model) -> dict:
@@ -1345,15 +1381,15 @@ TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, resize=5, resize_row=1, resize_bwd=
 EVAL_STEP_LAUNCHES = dict(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
 
 
-def write_fundus_set(root: Path, seed: int) -> None:
+def write_fundus_set(root: Path, seed: int, splits=FUNDUS_SPLITS) -> None:
     """IDRiD's layout at IDRiD's 2848x4288: JPG fundus images (a bright disk
     cut at top and bottom, as IDRiD's are, with yellow exudate blobs) and
-    their EX masks as TIFs, from `seed`."""
+    their EX masks as TIFs, from `seed`, for each (split, count)."""
     rng = np.random.RandomState(seed)
     h, w = IMAGE_HW
     yy, xx = np.ogrid[:h, :w]
     disk = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (0.6 * h) ** 2
-    for split, n in FUNDUS_SPLITS:
+    for split, n in splits:
         (root / "imgs" / split).mkdir(parents=True)
         (root / "masks" / split / "EX").mkdir(parents=True)
         for i in range(n):
@@ -1480,114 +1516,343 @@ def run_loop(label: str, config: TrainConfig, datasets, root: Path, **kw) -> tup
     return state, report, counts, tracker
 
 
-def phase_loop() -> dict:
+def phase_loop(root: Path) -> dict:
     """The training loop through ``train_model`` on a synthetic IDRiD set
     at IDRiD's own size: the flagship at full width, the image-level device
     cache and the augmentation on, 2 epochs; then a resume from ``best``
     for one more epoch; then one epoch host-fed (no device cache, the
-    pinned copies).  -> the launch counts of the three runs."""
+    pinned copies).  The data, caches and checkpoints go under `root`,
+    which phase 14 reads.  -> the launch counts of the three runs."""
     os.environ["WANDB_MODE"] = "disabled"       # the tracker stays offline
     native.require()
     total = launches()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        write_fundus_set(root / "idrid", seed=21)
-        log(f"loop data: {sum(n for _, n in FUNDUS_SPLITS)} fundus JPGs + EX TIFs at "
-            f"{IMAGE_HW[0]}x{IMAGE_HW[1]} written in {time.perf_counter() - t0:.1f} s")
-        config = loop_config(root)
-        t0 = time.perf_counter()
-        kw = dict(scale=LOOP_SCALE, patch_size=TRAIN_HW, lesion_type="EX",
-                  cache_dir=str(root / "cache"))
-        train_ds = IDRIDDataset(config.data_dir, split="train", balance_seed=config.seed, **kw)
-        val_ds = IDRIDDataset(config.data_dir, split="val", **kw)
-        log(f"dataset build (decode, scale {LOOP_SCALE}, patch index, uint8 cache): "
-            f"{time.perf_counter() - t0:.1f} s; train {len(train_ds)} patches "
-            f"({sum(r[3] for r in train_ds.patch_index)} with lesions), val {len(val_ds)}; "
-            f"native host ops: {native.available()}")
-        check(len(train_ds) >= 2 * TRAIN_BATCH, f"train set of {len(train_ds)} patches")
+    t0 = time.perf_counter()
+    write_fundus_set(root / "idrid", seed=21)
+    log(f"loop data: {sum(n for _, n in FUNDUS_SPLITS)} fundus JPGs + EX TIFs at "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} written in {time.perf_counter() - t0:.1f} s")
+    config = loop_config(root)
+    t0 = time.perf_counter()
+    kw = dict(scale=LOOP_SCALE, patch_size=TRAIN_HW, lesion_type="EX",
+              cache_dir=str(root / "cache"))
+    train_ds = IDRIDDataset(config.data_dir, split="train", balance_seed=config.seed, **kw)
+    val_ds = IDRIDDataset(config.data_dir, split="val", **kw)
+    log(f"dataset build (decode, scale {LOOP_SCALE}, patch index, uint8 cache): "
+        f"{time.perf_counter() - t0:.1f} s; train {len(train_ds)} patches "
+        f"({sum(r[3] for r in train_ds.patch_index)} with lesions), val {len(val_ds)}; "
+        f"native host ops: {native.available()}")
+    check(len(train_ds) >= 2 * TRAIN_BATCH, f"train set of {len(train_ds)} patches")
 
-        # one batch of the image cache = the host loader's (the native gather)
-        cache = ImageDeviceCache(train_ds, "cuda")
-        idx = np.random.RandomState(0).permutation(len(train_ds))[:TRAIN_BATCH]
-        images, masks = cache.make_gather()(
-            cache.images, cache.masks, torch.as_tensor(cache.batch_indices(idx), device="cuda"))
-        host = train_ds.gather_batch(idx)
-        check(torch.equal(images.cpu(), torch.from_numpy(host["image"]))
-              and torch.equal(masks.cpu(), torch.from_numpy(host["mask"])),
-              "a batch gathered from ImageDeviceCache differs from the host loader's")
-        log(f"image cache batch == host loader batch, bit for bit ({TRAIN_BATCH} patches)")
-        augment_checks(images, masks)
-        gen = torch.Generator().manual_seed(3)
-        aug_ms = time_ms(lambda: augment.augment_batch(gen, images, masks), 10)
-        rec = torch.as_tensor(cache.batch_indices(idx), device="cuda")
-        gather_ms = time_ms(lambda: cache.make_gather()(cache.images, cache.masks, rec), 20)
-        log(f"on the card, [16,512,512,3]: gather {gather_ms:.3f} ms  augment_batch "
-            f"{aug_ms:.3f} ms (CUDA events; phase 6's bare step p50 "
-            f"{SUMMARY.get('bare_step_p50', float('nan')):.4f} s)")
+    # one batch of the image cache = the host loader's (the native gather)
+    cache = ImageDeviceCache(train_ds, "cuda")
+    idx = np.random.RandomState(0).permutation(len(train_ds))[:TRAIN_BATCH]
+    images, masks = cache.make_gather()(
+        cache.images, cache.masks, torch.as_tensor(cache.batch_indices(idx), device="cuda"))
+    host = train_ds.gather_batch(idx)
+    check(torch.equal(images.cpu(), torch.from_numpy(host["image"]))
+          and torch.equal(masks.cpu(), torch.from_numpy(host["mask"])),
+          "a batch gathered from ImageDeviceCache differs from the host loader's")
+    log(f"image cache batch == host loader batch, bit for bit ({TRAIN_BATCH} patches)")
+    augment_checks(images, masks)
+    gen = torch.Generator().manual_seed(3)
+    aug_ms = time_ms(lambda: augment.augment_batch(gen, images, masks), 10)
+    rec = torch.as_tensor(cache.batch_indices(idx), device="cuda")
+    gather_ms = time_ms(lambda: cache.make_gather()(cache.images, cache.masks, rec), 20)
+    log(f"on the card, [16,512,512,3]: gather {gather_ms:.3f} ms  augment_batch "
+        f"{aug_ms:.3f} ms (CUDA events; phase 6's bare step p50 "
+        f"{SUMMARY.get('bare_step_p50', float('nan')):.4f} s)")
 
-        # the indexed, augmented step: a finite loss, every parameter moves
-        state = create_train_state(config, seed=0, device="cuda")
-        step = make_train_step(config, state.model, augment=True, indexed=True,
-                               gather=cache.make_gather())
-        before = {k: v.detach().clone() for k, v in state.model.named_parameters()}
-        state, aux = step(state, cache.images, cache.masks, cache.batch_indices(idx), 0.001)
-        check(bool(torch.isfinite(aux["loss"])), f"indexed augmented step: loss {aux['loss']}")
-        first_step_moved_everything(state.model, before)
-        del state, step, before, cache, images, masks, rec
-        torch.cuda.empty_cache()
+    # the indexed, augmented step: a finite loss, every parameter moves
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model, augment=True, indexed=True,
+                           gather=cache.make_gather())
+    before = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    state, aux = step(state, cache.images, cache.masks, cache.batch_indices(idx), 0.001)
+    check(bool(torch.isfinite(aux["loss"])), f"indexed augmented step: loss {aux['loss']}")
+    first_step_moved_everything(state.model, before)
+    del state, step, before, cache, images, masks, rec
+    torch.cuda.empty_cache()
 
-        datasets = (train_ds, val_ds)
-        state, report, counts, _ = run_loop("loop", config, datasets, root)
-        check(isinstance(report["device_train"], ImageDeviceCache)
-              and isinstance(report["device_val"], ImageDeviceCache),
-              f"the loop chose {type(report['device_train']).__name__}, not ImageDeviceCache")
-        cache_bytes = report["device_train"].nbytes + report["device_val"].nbytes
-        est_image = estimate_image_bytes(train_ds) + estimate_image_bytes(val_ds)
-        est_patch = estimate_bytes(train_ds) + estimate_bytes(val_ds)
-        log(f"device cache: ImageDeviceCache, {cache_bytes / 2 ** 20:.1f} MiB uint8 (estimate "
-            f"{est_image / 2 ** 20:.1f}; the patch layout would take {est_patch / 2 ** 20:.1f})")
-        total = {k: total[k] + counts[k] for k in total}
+    datasets = (train_ds, val_ds)
+    state, report, counts, _ = run_loop("loop", config, datasets, root)
+    check(isinstance(report["device_train"], ImageDeviceCache)
+          and isinstance(report["device_val"], ImageDeviceCache),
+          f"the loop chose {type(report['device_train']).__name__}, not ImageDeviceCache")
+    cache_bytes = report["device_train"].nbytes + report["device_val"].nbytes
+    est_image = estimate_image_bytes(train_ds) + estimate_image_bytes(val_ds)
+    est_patch = estimate_bytes(train_ds) + estimate_bytes(val_ds)
+    log(f"device cache: ImageDeviceCache, {cache_bytes / 2 ** 20:.1f} MiB uint8 (estimate "
+        f"{est_image / 2 ** 20:.1f}; the patch layout would take {est_patch / 2 ** 20:.1f})")
+    total = {k: total[k] + counts[k] for k in total}
 
-        # the state round-trips through a checkpoint on the card, bit for bit
-        check_dir = str(root / "round_trip")
-        save_checkpoint(check_dir, state, config, name="round_trip")
-        fresh = create_train_state(config, seed=1, device="cuda")
-        fresh, _ = restore_checkpoint(check_dir, fresh, name="round_trip")
-        sa, sb = state.model.state_dict(), fresh.model.state_dict()
-        oa, ob = state.optimizer.state_dict()["adamw"], fresh.optimizer.state_dict()["adamw"]
-        same = (all(torch.equal(sa[k], sb[k]) for k in sa)
-                and all(torch.equal(v, ob["state"][i][k]) for i, st in oa["state"].items()
-                        for k, v in st.items())
-                and torch.equal(state.generator.get_state(), fresh.generator.get_state())
-                and state.step == fresh.step)
-        check(same, "the restored state differs from the saved one")
-        log(f"checkpoint round trip: {len(sa)} model tensors (with BN buffers), "
-            f"{sum(len(st) for st in oa['state'].values())} AdamW tensors, the generator "
-            f"and step {state.step}: equal, bit for bit")
-        del state, fresh, report
-        torch.cuda.empty_cache()
+    # the state round-trips through a checkpoint on the card, bit for bit
+    check_dir = str(root / "round_trip")
+    save_checkpoint(check_dir, state, config, name="round_trip")
+    fresh = create_train_state(config, seed=1, device="cuda")
+    fresh, _ = restore_checkpoint(check_dir, fresh, name="round_trip")
+    sa, sb = state.model.state_dict(), fresh.model.state_dict()
+    oa, ob = state.optimizer.state_dict()["adamw"], fresh.optimizer.state_dict()["adamw"]
+    same = (all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(v, ob["state"][i][k]) for i, st in oa["state"].items()
+                    for k, v in st.items())
+            and torch.equal(state.generator.get_state(), fresh.generator.get_state())
+            and state.step == fresh.step)
+    check(same, "the restored state differs from the saved one")
+    log(f"checkpoint round trip: {len(sa)} model tensors (with BN buffers), "
+        f"{sum(len(st) for st in oa['state'].values())} AdamW tensors, the generator "
+        f"and step {state.step}: equal, bit for bit")
+    del state, fresh, report
+    torch.cuda.empty_cache()
 
-        # resume from best for one more epoch
-        run_dir = config.checkpoint_path()
-        saved = json.loads((Path(run_dir) / "host_state.json").read_text())
-        resume_config = loop_config(root, epochs=saved["epoch"] + 1)
-        state, report, counts, _ = run_loop("resumed loop", resume_config, datasets, root,
-                                            resume_from=run_dir)
-        check(report["start_epoch"] == saved["epoch"] + 1,
-              f"resumed at epoch {report['start_epoch']}, saved epoch {saved['epoch']}")
-        total = {k: total[k] + counts[k] for k in total}
-        del state, report
-        torch.cuda.empty_cache()
+    # resume from best for one more epoch
+    run_dir = config.checkpoint_path()
+    saved = json.loads((Path(run_dir) / "host_state.json").read_text())
+    resume_config = loop_config(root, epochs=saved["epoch"] + 1)
+    state, report, counts, _ = run_loop("resumed loop", resume_config, datasets, root,
+                                        resume_from=run_dir)
+    check(report["start_epoch"] == saved["epoch"] + 1,
+          f"resumed at epoch {report['start_epoch']}, saved epoch {saved['epoch']}")
+    total = {k: total[k] + counts[k] for k in total}
+    del state, report
+    torch.cuda.empty_cache()
 
-        # host-fed: no device cache, pinned copies
-        host_config = loop_config(root, epochs=1, device_cache=False,
-                                  checkpoint_dir=str(root / "ckpt_host"))
-        state, report, counts, _ = run_loop("host-fed loop", host_config, datasets, root)
-        check(report["device_train"] is None, "the host-fed run used a device cache")
-        total = {k: total[k] + counts[k] for k in total}
-        del state, report
-        torch.cuda.empty_cache()
+    # host-fed: no device cache, pinned copies
+    host_config = loop_config(root, epochs=1, device_cache=False,
+                              checkpoint_dir=str(root / "ckpt_host"))
+    state, report, counts, _ = run_loop("host-fed loop", host_config, datasets, root)
+    check(report["device_train"] is None, "the host-fed run used a device cache")
+    total = {k: total[k] + counts[k] for k in total}
+    del state, report
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----- phase 14 ------------------------------------------------------------
+
+TEST_SPLIT = (("test", 2),)
+# fundi the analyze CLI takes: one, since with two the phase took 142.6 s
+# (PERF.md, PR 8), over its 90 s share of the run; 30 s of each fundus is
+# host metrics
+ANALYZE_IMAGES = 1
+ANALYZE_BATCH = 4             # analyze_model.py's --batch_size default: the tile batch
+FUSION_SCALES = (1.0, 0.5)
+VIZ_SCALE, VIZ_SAMPLES, VIZ_TEMPS = 0.5, 5, (0.5, 1.0)
+EVAL_SCALE, EVAL_BATCH = 0.5, 6     # evaluate.py's --batch-size default
+PREDICT_SCALE = 0.5
+GLOBAL_PNGS = ("global_calibration_curve.png", "ece_vs_temperature.png",
+               "global_sparsification_curve.png", "global_uncertainty_distribution.png",
+               "global_error_roc_pr.png", "global_segmentation_roc_curve.png")
+EXTENDED_COLUMNS = ("brier", "nll", "mean_entropy", "mean_mutual_info",
+                    "mean_coeff_variation", "uncertain_pixel_percent")
+
+
+@contextlib.contextmanager
+def in_dir(path: Path):
+    prev = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(prev)
+
+
+def step_counts(label: str, expected: dict, smi: str) -> dict:
+    """The launches since the last reset, held against `expected`."""
+    torch.cuda.synchronize()
+    counts = _ext.launch_counts()
+    log(f"{label} launches: {counts}  expected {expected}  [{smi}]")
+    check(counts == expected, f"{label}: launch counts {counts} differ from the code's {expected}")
+    return counts
+
+
+def phase_analysis(root: Path) -> dict:
+    """The analysis path through its CLIs, on phase 13's tree: the flagship
+    from phase 13's ``best`` run dir, and a test split of 2 fundi at
+    2848x4288 added from a seed.  Loads (the run dir and the same weights
+    as a reference-format .pth: equal state dicts, logits within 1e-6),
+    analyzes (``cli.analyze``), fuses two scales (``fused_probability``),
+    visualizes (``cli.visualize``), evaluates (``cli.evaluate``) and
+    predicts (``cli.predict``, a plain-UNet .pth); each step's launches held
+    to the code's.  -> the phase's launch counts."""
+    os.environ["WANDB_MODE"] = "disabled"           # the tracker stays offline
+    os.environ["VAEUNET_CACHE_DIR"] = str(root / "cache")
+    use_fp32_numerics()
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    data = root / "idrid"
+    write_fundus_set(data, seed=22, splits=TEST_SPLIT)
+    log(f"analysis data: {sum(n for _, n in TEST_SPLIT)} test fundus JPGs + EX TIFs at "
+        f"{IMAGE_HW[0]}x{IMAGE_HW[1]} written in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = launches()
+
+    # 1. the run dir and the same weights as a reference .pth load alike
+    run_dir = loop_config(root).checkpoint_path()
+    _ext.reset_launch_counts()
+    model, config = load_model(run_dir)
+    pth = root / "flagship.pth"
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "params": {"lesion_type": config.lesion_type, "patch_size": config.patch_size,
+                           "img_scale": config.img_scale, "beta": config.beta,
+                           "free_bits": config.free_bits,
+                           "kl_anneal_epochs": config.kl_anneal_epochs,
+                           "latent_injection": config.latent_injection,
+                           "use_attention": config.use_attention, "seed": config.seed,
+                           "model_type": config.model_type}}, pth)
+    from_pth, pth_config = load_model(str(pth))
+    sa, sb = model.state_dict(), from_pth.state_dict()
+    check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+          "the .pth's state dict differs from the run dir's")
+    x = to_nchw(torch.rand((1, 512, 512, 3), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(26)))
+    with torch.inference_mode():
+        err = (model(x, sample=False)[0] - from_pth(x, sample=False)[0]).abs().max().item()
+    log(f"load: {run_dir} and {pth.name}: {len(sa)} tensors equal bit for bit, logits at "
+        f"512^2 differ by {err:.3g}; the .pth's config: {pth_config.model_type}, "
+        f"{pth_config.backbone}, latent {pth_config.latent_dim}, "
+        f"'{pth_config.latent_injection}'  [{smi}]")
+    check(err <= 1e-6, f"logits of the two loads differ by {err} > 1e-6")
+    check(isinstance(model, UNetResNet) and model.latent_dim == 32
+          and model.latent_injection == "all", "the run dir is not the flagship")
+    total = add_counts(total, step_counts("load", launches(2, bn_relu=30, resize=5,
+                                                           resize_row=1), smi))
+    del from_pth
+
+    # 2. analyze_model.py's request through the CLI
+    out = root / "analysis"
+    report: dict = {}
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    with in_dir(root):                               # the tracker's ./runs
+        df = analyze_cli.main([
+            "--model", run_dir, "--lesion_type", "EX", "--scale", "1.0", "--patch_size",
+            str(PATCH), "--overlap", str(OVERLAP), "--samples", str(N_SAMPLES),
+            "--temperature", "1", "--batch_size", str(ANALYZE_BATCH),
+            "--max_images", str(ANALYZE_IMAGES), "--extended-metrics",
+            "--data-dir", str(data), "--output_dir", str(out)], report=report)
+    analyze_s = time.perf_counter() - t0
+    expected = add_counts(*(request_launches(r["hw"], ANALYZE_BATCH)
+                            for r in report["images"]))
+    total = add_counts(total, step_counts("analyze", expected, smi))
+    for r in report["images"]:
+        log(f"analyze {r['img_id']} ({r['hw'][0]}x{r['hw'][1]}, N={N_SAMPLES}, tiles "
+            f"{PATCH}/{OVERLAP}, tile batch {ANALYZE_BATCH}): request {r['request_s']:.3f} s "
+            f"(ends in torch.cuda.synchronize), samples to the host {r['fetch_s']:.3f} s, "
+            f"host metrics and spills {r['host_s']:.3f} s  [{smi}]")
+    renderer = "matplotlib" if figures.pyplot() is not figures.LITE else "the PIL renderer"
+    log(f"analyze global stage (plots by {renderer}, global metrics): "
+        f"{report['global_s']:.3f} s; the CLI end to end {analyze_s:.1f} s  [{smi}]")
+    results = out / f"EX_T1.0_N{N_SAMPLES}"
+    csv = pd.read_csv(results / "analysis_metrics.csv")
+    columns = ["img_id", "dice", "ece", "sparsification_error", "uncertainty_error_dice",
+               "error_auroc", "error_auprc", *EXTENDED_COLUMNS]
+    values = csv[columns[1:]].to_numpy(dtype=np.float64)
+    log(f"analysis_metrics.csv: {len(csv)} rows, {len(csv.columns)} columns; "
+        f"{csv[columns[1:7]].round(4).to_dict('records')}")
+    check(len(df) == len(csv) == ANALYZE_IMAGES and list(csv.columns) == columns,
+          f"the CSV has {len(csv)} rows and columns {list(csv.columns)}")
+    check(bool(np.isfinite(values).all()), "non-finite analysis metrics")
+    check(all((results / png).exists() for png in GLOBAL_PNGS), "a global plot is missing")
+    check(not (results / "temp_pixel_data").exists(), "the spill dir was left behind")
+
+    # 3. two scales fused
+    fundus = load_image(data / "imgs" / "test" / "IDRiD_00.jpg")
+    members = [(model, preprocess_pil(fundus, s, is_mask=False).astype(np.float32) / 255.0)
+               for s in FUSION_SCALES]
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused, stack = fused_probability(members, torch.Generator(device="cuda").manual_seed(23),
+                                     num_samples=N_SAMPLES, patch_size=PATCH,
+                                     tile_batch=TILE_BATCH)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    adaptive = adaptive_overlap(PATCH)
+    expected = add_counts(*(request_launches(m[1].shape[:2], TILE_BATCH, overlap=adaptive)
+                            for m in members), launches(resize=1, resize_row=1))
+    total = add_counts(total, step_counts("fusion", expected, smi))
+    threshold = expected_area_threshold(fused)
+    log(f"fusion of {[m[1].shape[:2] for m in members]} (scales {FUSION_SCALES}, N="
+        f"{N_SAMPLES}, tiles {PATCH}/{adaptive}): {fuse_s:.3f} s; fused mean "
+        f"{fused.mean().item():.4f}, expected-area threshold {threshold:.4f}  [{smi}]")
+    check(tuple(fused.shape) == (*IMAGE_HW, 1) and tuple(stack.shape) == (2, *IMAGE_HW, 1),
+          f"fused {tuple(fused.shape)}, members {tuple(stack.shape)}")
+    check(bool(torch.isfinite(fused).all()) and bool((fused >= stack).all()),
+          "the max fusion is below a member's mean")
+    check(0.0 < threshold <= 1.0, f"expected-area threshold {threshold}")
+    del fused, stack, members
+
+    # 4. visualize_vae.py through the CLI, one image
+    test_ds = IDRIDDataset(str(data), split="test", scale=VIZ_SCALE, patch_size=None,
+                           lesion_type="EX", max_images=1, skip_border_check=True)
+    viz_hw = test_ds.get_image_and_mask(test_ds.unique_image_ids()[0])[0].shape[:2]
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = visualize_cli.main([
+        "--model", run_dir, "--scale", str(VIZ_SCALE), "--patch_size", str(PATCH),
+        "--samples", str(VIZ_SAMPLES), "--compare_temperatures", "--ensemble",
+        "--temperatures", *map(str, VIZ_TEMPS), "--max_images", "1", "--data-dir", str(data),
+        "--output_dir", str(root / "figures")])
+    viz_s = time.perf_counter() - t0
+    ensemble = tiled_decodes(viz_hw, ANALYZE_BATCH, VIZ_SAMPLES)
+    expected = add_counts(
+        *[request_launches(viz_hw, ANALYZE_BATCH, VIZ_SAMPLES)] * (1 + len(VIZ_TEMPS)),
+        launches(bn_relu=17), *[add_counts(ensemble, launches(reparam=1))] * len(VIZ_TEMPS))
+    total = add_counts(total, step_counts("visualize", expected, smi))
+    log(f"visualize ({viz_hw[0]}x{viz_hw[1]}, N={VIZ_SAMPLES}, T {VIZ_TEMPS}): {viz_s:.1f} s, "
+        f"{[p.name for p in written]}  [{smi}]")
+    check(len(written) == 3 and all(p.exists() for p in written), f"figures {written}")
+
+    # 5. evaluate.py through the CLI on the val split
+    val_ds = IDRIDDataset(str(data), split="val", scale=EVAL_SCALE, patch_size=TRAIN_HW,
+                          lesion_type="EX")
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate_cli.main(["--model", run_dir, "--split", "val", "--scale",
+                                 str(EVAL_SCALE), "--patch-size", str(TRAIN_HW),
+                                 "--data-dir", str(data)])
+    eval_s = time.perf_counter() - t0
+    batches = -(-len(val_ds) // EVAL_BATCH)
+    total = add_counts(total, step_counts("evaluate", launches(batches, **EVAL_STEP_LAUNCHES),
+                                          smi))
+    log(f"evaluate ({len(val_ds)} val patches, {batches} batches): {eval_s:.2f} s, "
+        f"{ {k: round(v, 4) for k, v in metrics.items()} }  [{smi}]")
+    check(len(metrics) > 0 and all(np.isfinite(list(metrics.values()))),
+          f"evaluate metrics {metrics}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 6. predict.py through the CLI: a plain-UNet .pth, one fundus PNG
+    unet = build_unet(3, 1, bilinear=False, seed=24, device="cuda")
+    randomize_bn_stats(unet, seed=25)
+    unet_pth = root / "unet.pth"
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in unet.state_dict().items()},
+                "params": {"model_type": "basic"}}, unet_pth)
+    png = root / "fundus.png"
+    fundus.save(png)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    masks = predict_cli.main(["--model", str(unet_pth), "--input", str(png), "--scale",
+                              str(PREDICT_SCALE)])
+    predict_s = time.perf_counter() - t0
+    total = add_counts(total, step_counts("predict", launches(bn_relu=18, resize=1,
+                                                              resize_row=1), smi))
+    mask = np.asarray(Image.open(masks[0])) > 0
+    arr = preprocess_pil(Image.open(png).convert("RGB"), PREDICT_SCALE,
+                         is_mask=False).astype(np.float32) / 255.0
+    probs, _ = predict_image(unet, arr)
+    ref = (resize_bilinear(probs[None].permute(0, 3, 1, 2), IMAGE_HW,
+                           align_corners=False)[0, 0] > 0.5).cpu().numpy()
+    log(f"predict ({arr.shape[0]}x{arr.shape[1]} in, mask {mask.shape[0]}x{mask.shape[1]}): "
+        f"{predict_s:.2f} s, mask share {mask.mean():.4f}, equal to predict_image + resize + "
+        f"threshold: {bool(np.array_equal(mask, ref))}  [{smi}]")
+    check(mask.shape == IMAGE_HW, f"predict mask {mask.shape}")
+    check(bool(np.array_equal(mask, ref)), "the predict CLI's mask differs from phase 9's "
+          "computation on the same weights")
+    del unet, probs
+    torch.cuda.empty_cache()
+
+    log(f"analysis phase: peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"{time.perf_counter() - t_phase:.1f} s in all  [{smi}]")
     return total
 
 
@@ -1639,7 +1904,10 @@ def main() -> None:
     path_counts = [counts, train_counts, fp32_counts, phase_unet_serve(), *phase_unet_train(),
                    phase_r50_train(), phase_remat()]
     log(f"phases 9-12: {time.perf_counter() - t_start:.1f} s")
-    path_counts.append(phase_loop())
+    with tempfile.TemporaryDirectory() as tmp:
+        path_counts.append(phase_loop(Path(tmp)))
+        log(f"phase 13: {time.perf_counter() - t_start:.1f} s")
+        path_counts.append(phase_analysis(Path(tmp)))
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]

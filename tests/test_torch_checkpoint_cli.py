@@ -3,7 +3,8 @@ its train CLI (``python -m vaeunet_tpu_torch.cli.train``): a checkpoint
 gives back the parameters, BN buffers, AdamW state, generator state, step
 and host state bit for bit; the CLI's parser has every option and ``dest``
 of the top-level ``train.py`` with its defaults; the flags whose module is
-not ported raise; the CLI trains, loads and resumes on the CPU."""
+not ported raise (``--load`` of a ``.pth`` and its refusals:
+``tests/test_torch_analysis_cli.py``); the CLI trains, loads and resumes on the CPU."""
 
 import argparse
 import json
@@ -137,8 +138,6 @@ def test_parser_has_every_flag_and_default_of_train_py(monkeypatch):
 @pytest.mark.parametrize("argv,what", [
     (["--pretrained-encoder", "enc"], "training/pretrain.py"),
     (["--num-devices", "2"], "parallel/"),
-    (["--load", "weights.pth"], "compat/loading.py"),
-    (["--load", "no_such_run_dir"], "compat/loading.py"),
 ])
 def test_unported_flags_raise(argv, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -37,7 +37,15 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "vaeunet_tpu_torch.data.device_cache, vaeunet_tpu_torch.data.fundus, "
             "vaeunet_tpu_torch.native, vaeunet_tpu_torch.training.loop, "
             "vaeunet_tpu_torch.training.checkpoint, vaeunet_tpu_torch.utils.tracking, "
-            "vaeunet_tpu_torch.cli.train; "
+            "vaeunet_tpu_torch.cli.train, vaeunet_tpu_torch.utils.tensor_utils, "
+            "vaeunet_tpu_torch.uncertainty, vaeunet_tpu_torch.compat.torch_weights, "
+            "vaeunet_tpu_torch.compat.loading, vaeunet_tpu_torch.inference.ensemble, "
+            "vaeunet_tpu_torch.analysis, vaeunet_tpu_torch.analysis.plots, "
+            "vaeunet_tpu_torch.analysis.analyze, vaeunet_tpu_torch.analysis.visualize, "
+            "vaeunet_tpu_torch.cli.analyze, vaeunet_tpu_torch.cli.visualize, "
+            "vaeunet_tpu_torch.cli.evaluate, vaeunet_tpu_torch.cli.predict; "
+            "from vaeunet_tpu_torch.cli import analyze, visualize, evaluate, predict; "
+            "[m.get_parser() for m in (analyze, visualize, evaluate, predict)]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")
@@ -57,7 +65,7 @@ def test_sources_name_no_jax_import():
                 assert stripped.split()[1] != "vaeunet_tpu", f"{path}: {stripped}"
 
 
-def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
@@ -72,6 +80,38 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         predict_tiled_ensemble(model, img, torch.zeros(1, 32), patch_size=64)
     assert resolve_device("cpu") == torch.device("cpu")
+    # the analysis path's entry points
+    from vaeunet_tpu_torch.analysis import AnalyzeArgs, analyze_model
+    from vaeunet_tpu_torch.analysis.visualize import (generate_and_compare_ensemble,
+                                                      plot_reconstruction,
+                                                      visualize_temperature_sampling)
+    from vaeunet_tpu_torch.compat import load_model
+    from vaeunet_tpu_torch.inference import fused_probability
+
+    class OneImage:
+        def unique_image_ids(self):
+            return ["a"]
+
+        def get_image_and_mask(self, img_id):
+            return img, np.zeros((64, 64, 1), np.float32)
+
+    mask = np.zeros((64, 64, 1), np.float32)
+    calls = [
+        lambda: analyze_model(model, OneImage(), AnalyzeArgs(output_dir=str(tmp_path))),
+        lambda: fused_probability([(model, img)], torch.Generator(), num_samples=1),
+        lambda: generate_and_compare_ensemble(model, img, mask, torch.Generator()),
+        lambda: plot_reconstruction(model, OneImage(), "a", torch.Generator(), num_samples=1),
+        lambda: visualize_temperature_sampling(model, img, mask, torch.Generator()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    torch.save(model.state_dict(), tmp_path / "w.pth")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(str(tmp_path / "w.pth"), overrides={"backbone": "resnet18"})
+    loaded, _ = load_model(str(tmp_path / "w.pth"), overrides={"backbone": "resnet18"},
+                           device="cpu")
+    assert next(loaded.parameters()).device.type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
 

@@ -13,8 +13,13 @@ VAE-UNet (``inference.segmentation_distribution``, ``uncertainty_maps``,
 (``training.create_train_state``, ``make_train_step``, ``make_eval_step``,
 with ``losses`` and ``metrics``); the plain UNet (``models.UNet``,
 ``build_unet``) through the same serving call and steps; the
-resnet18/34/50/101 backbones, deep supervision and remat.  Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+resnet18/34/50/101 backbones, deep supervision and remat; the training
+loop (``training.train_model``, ``cli.train``); the uncertainty analysis
+(``analysis.analyze_model``, ``analysis.visualize``, ``uncertainty``),
+multi-model fusion (``inference.fused_probability``), checkpoint loading
+(``compat.load_model``: a reference ``.pth`` or a run dir of this package)
+and the analyze, visualize, evaluate and predict CLIs (``cli``).  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -22,13 +27,19 @@ __version__ = "0.1.0"
 from vaeunet_tpu_torch.device import resolve_device, use_fp32_numerics
 from vaeunet_tpu_torch.models import UNet, UNetResNet, build_model, build_unet, capture_attention
 from vaeunet_tpu_torch.inference import (
+    fused_probability,
     predict_full_image,
     predict_image,
     predict_tiled_ensemble,
     segmentation_distribution,
     uncertainty_maps,
 )
-from vaeunet_tpu_torch.compat import convert_jax_unet, convert_jax_unet_resnet, load_jax_variables
+from vaeunet_tpu_torch.compat import (
+    convert_jax_unet,
+    convert_jax_unet_resnet,
+    load_jax_variables,
+    load_model,
+)
 from vaeunet_tpu_torch.training import (
     TrainConfig,
     create_train_state,
@@ -44,6 +55,7 @@ __all__ = [
     "build_model",
     "build_unet",
     "capture_attention",
+    "fused_probability",
     "predict_full_image",
     "predict_image",
     "predict_tiled_ensemble",
@@ -52,6 +64,7 @@ __all__ = [
     "convert_jax_unet",
     "convert_jax_unet_resnet",
     "load_jax_variables",
+    "load_model",
     "TrainConfig",
     "create_train_state",
     "make_eval_step",

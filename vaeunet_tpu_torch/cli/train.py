@@ -8,11 +8,11 @@ same ``dest``:
 
 Runs ``training.loop.train_model`` on the CUDA device (``--device cpu`` for
 the CPU).  ``--resume RUN_DIR`` restores the full training state from
-``RUN_DIR/best``; ``--load RUN_DIR`` takes only the model's weights from a
-run dir of this package.  Flags whose module is not ported yet raise
-instead of being ignored: ``--pretrained-encoder`` (``training/pretrain.py``),
-``--num-devices`` above 1 (``parallel/``), and ``--load`` of a reference
-``.pth`` or a JAX run dir (``compat/``).
+``RUN_DIR/best``; ``--load`` takes only the model's weights, from a run dir
+of this package or a reference ``.pth`` (``compat/loading.py``; a JAX
+orbax run dir is refused there).  Flags whose module is not ported yet
+raise instead of being ignored: ``--pretrained-encoder``
+(``training/pretrain.py``) and ``--num-devices`` above 1 (``parallel/``).
 """
 
 import argparse
@@ -30,8 +30,8 @@ def get_parser() -> argparse.ArgumentParser:
                         default=1e-4)
     parser.add_argument("--load", "-f", type=str, default=False,
                         help="Load model weights from a run dir of this package "
-                        "(a reference .pth or a JAX orbax run dir needs compat/, "
-                        "not ported yet)")
+                        "or a reference .pth (a JAX orbax run dir needs jax: "
+                        "refused)")
     parser.add_argument("--reset-best", action="store_true", default=False,
                         help="With --resume: start best-val tracking fresh "
                         "(fine-tunes under a new objective save their own best)")
@@ -178,14 +178,6 @@ def refuse_unported(args) -> None:
     if args.num_devices > 1:
         raise NotImplementedError(f"--num-devices {args.num_devices} needs parallel/, which is "
                                   "not ported yet (ROADMAP Queue 1 item 7)")
-    if args.load:
-        from vaeunet_tpu_torch.training.checkpoint import is_checkpoint
-
-        if str(args.load).endswith(".pth") or not is_checkpoint(args.load):
-            raise NotImplementedError(
-                f"--load {args.load}: not a run dir of this package; a reference .pth or a "
-                "JAX run dir needs compat/loading.py, which is not ported yet (ROADMAP Queue 1 "
-                "item 6)")
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -193,8 +185,8 @@ def main(argv: Optional[Sequence[str]] = None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     refuse_unported(args)
 
+    from vaeunet_tpu_torch.compat.loading import load_state
     from vaeunet_tpu_torch.device import resolve_device
-    from vaeunet_tpu_torch.training.checkpoint import load_model_state
     from vaeunet_tpu_torch.training.loop import train_model
 
     device = resolve_device(args.device)
@@ -202,7 +194,7 @@ def main(argv: Optional[Sequence[str]] = None):
     config = config_from_args(args)
     model_state = None
     if args.load:
-        model_state = load_model_state(args.load)
+        model_state, _ = load_state(args.load)
         logging.info("Loaded weights from %s", args.load)
     return train_model(config, model_state=model_state, resume_from=args.resume, device=device)
 

@@ -1,0 +1,85 @@
+"""Checkpoint loading for every CLI.  Port of
+``vaeunet_tpu/compat/loading.py`` (``load_model_and_variables``, ``:22-70``).
+
+Accepts a reference ``.pth`` file (train.py:542-565 format or a bare state
+dict) or a run directory of this package (``training/checkpoint.py``),
+rebuilds the model from the stored hyperparameters, and returns
+``(model, config)``: the port's model carries its own weights.
+
+A run directory of the JAX package holds an orbax checkpoint, which only
+orbax can read, and orbax imports jax; this package never imports jax, so
+such a directory is refused with ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from vaeunet_tpu_torch.compat.torch_weights import load_reference_checkpoint
+from vaeunet_tpu_torch.training.checkpoint import is_checkpoint, load_config, load_model_state
+from vaeunet_tpu_torch.training.config import TrainConfig
+
+log = logging.getLogger(__name__)
+
+# reference ``params`` entry -> TrainConfig field  (loading.py:39-52)
+_META_FIELDS = {"lesion_type": "lesion_type", "patch_size": "patch_size",
+                "img_scale": "img_scale", "beta": "beta", "free_bits": "free_bits",
+                "kl_anneal_epochs": "kl_anneal_epochs",
+                "latent_injection": "latent_injection",
+                "use_attention": "use_attention", "seed": "seed"}
+
+
+def load_state(path: str, overrides: Optional[Dict[str, Any]] = None
+               ) -> Tuple[Dict[str, torch.Tensor], TrainConfig]:
+    """-> (state dict on the host, config) of a checkpoint.
+
+    The checkpoint's own metadata wins (state-dict keys and stored params
+    for a ``.pth``, config.json for a run dir); `overrides` act as
+    fallbacks for fields the checkpoint does not record (e.g. the CLI's
+    --latent-injection on a bare state dict)."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    if p.is_file():
+        sd, meta = load_reference_checkpoint(str(p))
+        cfg_kwargs: Dict[str, Any] = {}
+        for src, dst in _META_FIELDS.items():
+            if meta.get(src) is not None:
+                cfg_kwargs[dst] = meta[src]
+        if meta.get("model_type"):
+            cfg_kwargs["model_type"] = "resnet" if meta["model_type"] == "resnet" else "basic"
+        # the VAE-UNet's keys carry its encoder; a plain UNet upsamples
+        # bilinearly when it has no transposed-conv weights
+        # (torch_weights.py:164,168 of the JAX package)
+        is_resnet = any(k.startswith("encoder.") for k in sd)
+        cfg_kwargs.setdefault("model_type", "resnet" if is_resnet else "basic")
+        if cfg_kwargs["model_type"] == "basic":
+            cfg_kwargs["bilinear"] = not any(".up.weight" in k for k in sd)
+        config = TrainConfig(**{**(overrides or {}), **cfg_kwargs})
+        log.info("Loaded reference checkpoint %s (%s)", path, config.model_type)
+        return sd, config
+    if is_checkpoint(str(p)):
+        config = load_config(str(p)) or TrainConfig(**(overrides or {}))
+        log.info("Loaded checkpoint %s (%s)", path, config.model_type)
+        return load_model_state(str(p)), config
+    raise NotImplementedError(
+        f"{path} is not a run dir of this package (no best/state.pt); a JAX run dir holds "
+        "an orbax checkpoint, which needs orbax and therefore jax, and vaeunet_tpu_torch "
+        "never imports jax: load it with the JAX package and save its weights as a .pth")
+
+
+def load_model(path: str, overrides: Optional[Dict[str, Any]] = None,
+               device=None) -> Tuple[torch.nn.Module, TrainConfig]:
+    """-> (model in eval mode on `device`, config): :func:`load_state`
+    into the config's model, strictly (every key, no extra one).  `device`:
+    CUDA unless ``"cpu"``."""
+    from vaeunet_tpu_torch.training.state import build_model
+
+    sd, config = load_state(path, overrides)
+    model = build_model(config, device=device)
+    model.load_state_dict(sd)
+    return model.eval(), config

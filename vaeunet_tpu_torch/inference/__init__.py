@@ -11,6 +11,7 @@ from vaeunet_tpu_torch.inference.predict import (
     segmentation_distribution,
     uncertainty_maps,
 )
+from vaeunet_tpu_torch.inference.ensemble import expected_area_threshold, fused_probability
 
 __all__ = [
     "adaptive_overlap",
@@ -22,4 +23,6 @@ __all__ = [
     "predict_image",
     "segmentation_distribution",
     "uncertainty_maps",
+    "fused_probability",
+    "expected_area_threshold",
 ]
