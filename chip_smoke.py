@@ -78,7 +78,26 @@ the card, in phases that each fail the run with a non-zero exit:
    on a fundus PNG (a 2848x4288 mask equal to predict_image + resize +
    threshold on the same weights).  Each step's launches are held to the
    code's, and the request's, the host metrics' and the global stage's
-   times printed beside the card's name and power limit.
+   times printed beside the card's name and power limit;
+15. parallelism (``parallel/``), each rank a process of ``parallel.launch``:
+   (a) one rank over NCCL, where the flagship's global-batch DP step (bf16,
+   512^2, batch 16) equals ``make_train_step``'s on the same weights, batch
+   and generator bit for bit, its launches held; (b) two ranks over gloo
+   sharing the card (NCCL with a card each): the fp32 DP step (TF32 off,
+   global batch 16) against the one-rank step, the per-device step
+   (``explicit=True``) against its hand split, the channel-sharded step
+   (model axis 2, ``min_channels`` 256, batch 4) against the unsharded one,
+   all within tests/torch_train_parity.py's bounds, and its clip norm
+   against the gathered gradient's; ``ensemble_sample_parallel`` (N=10,
+   1024^2) against the one-rank decode and ``predict_tiled_sharded`` of a
+   2848x4288 image against ``predict_with_patches``, atol 1e-5; the ranks'
+   step launches held;
+16. encoder pretraining and the profiling helpers: the masked and the
+   contrastive pretext at full width (resnet34, 512^2, batch 8, bf16), 3
+   steps each (every parameter moved and finite, launches held);
+   ``time_fn``, ``trace`` and ``track_memory`` once each on the masked
+   step; ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
+   --pretrained-encoder`` starting from its encoder bit for bit.
 
 Phase 3 also holds the conv kernel in both types at every conv shape of the
 paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
@@ -120,6 +139,8 @@ from vaeunet_tpu_torch import build_model, native, predict_image, segmentation_d
 from vaeunet_tpu_torch.cli import analyze as analyze_cli
 from vaeunet_tpu_torch.cli import evaluate as evaluate_cli
 from vaeunet_tpu_torch.cli import predict as predict_cli
+from vaeunet_tpu_torch.cli import pretrain as pretrain_cli
+from vaeunet_tpu_torch.cli import train as train_cli
 from vaeunet_tpu_torch.cli import visualize as visualize_cli
 from vaeunet_tpu_torch.compat import load_model
 from vaeunet_tpu_torch.data import IDRIDDataset, augment
@@ -131,9 +152,17 @@ from vaeunet_tpu_torch.data.device_cache import (
 )
 from vaeunet_tpu_torch import uncertainty_maps, use_fp32_numerics
 from vaeunet_tpu_torch.inference import expected_area_threshold, fused_probability
+from vaeunet_tpu_torch.inference import predict_with_patches
 from vaeunet_tpu_torch.inference.tiled import adaptive_overlap, compute_tile_grid
 from vaeunet_tpu_torch.models import UNetResNet, build_unet
-from vaeunet_tpu_torch.ops import _ext
+from vaeunet_tpu_torch.ops import _ext, collectives
+from vaeunet_tpu_torch.parallel import launch, make_dp_train_step, make_mesh, shard_batch
+from vaeunet_tpu_torch.parallel.inference import (
+    decode_samples,
+    ensemble_sample_parallel,
+    predict_tiled_sharded,
+)
+from vaeunet_tpu_torch.parallel.tp import shard_state
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
 from vaeunet_tpu_torch.ops.pallas import conv_bn_stats as conv_mod
@@ -149,8 +178,14 @@ from vaeunet_tpu_torch.training import (
     train_model,
 )
 from vaeunet_tpu_torch.losses import make_criterion
+from vaeunet_tpu_torch.training.pretrain import (
+    build_pretrain_model,
+    create_pretrain_state,
+    make_contrastive_step,
+    make_pretrain_step,
+)
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
-from vaeunet_tpu_torch.utils import figures
+from vaeunet_tpu_torch.utils import figures, profiling
 from vaeunet_tpu_torch.utils.tracking import Tracker
 from vaeunet_tpu_torch.vae_utils import to_nchw
 
@@ -1856,6 +1891,488 @@ def phase_analysis(root: Path) -> dict:
     return total
 
 
+# ----- phase 15 ------------------------------------------------------------
+
+PAR_BATCH = 16           # the two-rank fp32 steps' global batch (8 rows a rank)
+TP_BATCH = 4             # the channel-sharded step's batch (every model rank's)
+TP_MIN_CHANNELS = 256
+ENSEMBLE_HW = 1024       # the sample-parallel ensemble decodes the whole image
+PAR_TIMED_STEPS = 3
+# the two-rank steps' gradients (averaged over the ranks) against one rank's,
+# by relative L2.  The per-device and the channel-sharded steps sum what one
+# rank sums, in its order (measured 2.8e-6 and 4.5e-6 on an H100).  The
+# global-batch step sums BN moments and batch reductions in another order,
+# which this model's fp32 gradient amplifies: 2.1e-3, as much as one rank's
+# gradient of the same batch with its halves swapped (`reorder_floor`,
+# logged each run).  A mean taken as a sum, a rank's rows dropped or a
+# moment's cotangent lost give 0.3 and more.
+SPLIT_GRAD_LIMIT, DP_GRAD_LIMIT = 1e-4, 5e-3
+
+
+def on_host(tree: dict) -> dict:
+    """A copy of each tensor on the host (a copy on the CPU as well)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
+def host_state(model: torch.nn.Module) -> dict:
+    return on_host(model.state_dict())
+
+
+def device_grads(model: torch.nn.Module) -> dict:
+    """A copy of every parameter's gradient, on its device."""
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def train_batch(seed: int, batch: int, device="cuda") -> tuple:
+    g = torch.Generator(device=device).manual_seed(seed)
+    images = torch.rand((batch, TRAIN_HW, TRAIN_HW, 3), device=device, generator=g)
+    masks = (torch.rand((batch, TRAIN_HW, TRAIN_HW, 1), device=device, generator=g)
+             > 0.9).float()
+    return images, masks
+
+
+def parallel_noise() -> torch.Tensor:
+    """The latent noise of the two-rank steps, [1, PAR_BATCH, 32]."""
+    return torch.randn((1, PAR_BATCH, 32), generator=torch.Generator().manual_seed(12))
+
+
+def counted(fn):
+    """fn() with the launch counters set to 0 just before and read just
+    after (the card synchronized) -> (result, counts, seconds)."""
+    torch.cuda.synchronize()
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _ext.launch_counts(), time.perf_counter() - t0
+
+
+def rank_world_one(ctx) -> dict:
+    """Phase 15 (a), one rank over NCCL: the flagship's global-batch DP
+    step (bf16, 512^2, batch 16) and ``make_train_step``'s from the same
+    weights, batch and generator: the same loss and parameters, bit for
+    bit (an all-reduce over one rank is the identity; cuDNN's deterministic
+    algorithms, since its backward is otherwise not bit-exact from run to
+    run)."""
+    torch.backends.cudnn.deterministic = True
+    config = train_config()
+    images, masks = train_batch(9, TRAIN_BATCH, ctx.device)
+    out = {"backend": ctx.backend}
+    results = []
+    for dp in (False, True):
+        state = create_train_state(config, seed=0, device=ctx.device)
+        step = (make_dp_train_step(config, ctx, state.model) if dp
+                else make_train_step(config, state.model))
+        (state, aux), counts, sec = counted(lambda: step(state, images, masks, 0.001))
+        out["dp_counts" if dp else "counts"] = counts
+        out["dp_s" if dp else "s"] = sec
+        results.append((aux["loss"].item(), host_state(state.model)))
+        del state, step
+        torch.cuda.empty_cache()
+    (l0, s0), (l1, s1) = results
+    out.update(loss=l1, same_loss=l0 == l1,
+               same_state=all(torch.equal(s0[k], s1[k]) for k in s0))
+    return out
+
+
+def rank_parallel(ctx) -> dict:
+    """Phase 15 (b), on each of two ranks: the fp32 global-batch DP step
+    (TF32 off, global batch 16; its gradient averaged over the ranks, then
+    the step) and 3 timed ones; the per-device step on fed noise (the
+    same); the channel-sharded step on a (1, 2) mesh of the same ranks
+    (its gathered gradient, clip norm and whole parameters); the
+    sample-parallel ensemble (N = 10) of a 1024^2 image; the tile-sharded
+    prediction of a 2848x4288 image.  Rank 0 returns the tensors."""
+    use_fp32_numerics()
+    config = train_config(amp=False)
+    images, masks = train_batch(9, PAR_BATCH, ctx.device)
+    eps = parallel_noise()
+    half = PAR_BATCH // ctx.n_data
+    mine = slice(ctx.data_rank * half, (ctx.data_rank + 1) * half)
+    keep = ctx.rank == 0
+    out = {"rank": ctx.rank, "backend": ctx.backend}
+
+    def step_keeping_grads(step, state, *batch, **kw):
+        """compute_gradients (the gradient averaged over the data group),
+        a copy of the gradient, then the optimizer step: ``step(...)``."""
+        aux = step.compute_gradients(state, *batch, 0.001, **kw)
+        grads = device_grads(state.model)
+        state.optimizer.step()
+        state.step += 1
+        return aux, grads
+
+    state = create_train_state(config, seed=0, device=ctx.device)
+    step = make_dp_train_step(config, ctx, state.model)
+    im_r, mk_r = shard_batch(ctx, images, masks)
+    (aux, grads), out["dp_counts"], out["dp_cold_s"] = counted(
+        lambda: step_keeping_grads(step, state, im_r, mk_r))
+    out["dp_loss"] = aux["loss"].item()
+    if keep:
+        out["dp_state"], out["dp_grads"] = host_state(state.model), on_host(grads)
+    del grads
+    times = []
+    for _ in range(PAR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, im_r, mk_r, 0.001)
+        aux["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["dp_step_s"] = times
+    del state, step
+    torch.cuda.empty_cache()
+
+    state = create_train_state(config, seed=0, device=ctx.device)
+    step = make_dp_train_step(config, ctx, state.model, explicit=True)
+    (aux, grads), out["explicit_counts"], _ = counted(
+        lambda: step_keeping_grads(step, state, images[mine], masks[mine], eps=eps[:, mine]))
+    out["explicit_loss"] = aux["loss"].item()
+    if keep:
+        out["explicit_state"] = host_state(state.model)
+        out["explicit_grads"] = on_host(grads)
+    del state, step, grads
+    torch.cuda.empty_cache()
+
+    tp_ctx = make_mesh(ctx.world_size, model_axis=2, device=ctx.device)
+    state = create_train_state(config, seed=0, device=ctx.device)
+    names = shard_state(state, config, tp_ctx, TP_MIN_CHANNELS)
+    step = make_train_step(config, state.model)
+    tb = slice(0, TP_BATCH)
+
+    def tp_step():
+        aux = step.compute_gradients(state, images[tb], masks[tb], 0.001, eps=eps[:, tb])
+        grads = {n: (collectives.gather(p.grad, 0, tp_ctx.model) if n in names
+                     else p.grad.clone()) for n, p in state.model.named_parameters()}
+        full = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+        norm = state.optimizer.clip_()
+        state.optimizer.adamw.step()
+        return aux, grads, full.item(), norm.item()
+
+    (aux, grads, full_norm, norm), out["tp_counts"], _ = counted(tp_step)
+    params = dict(state.model.named_parameters())
+    whole = {k: (collectives.gather(params[k].detach(), 0, tp_ctx.model) if k in names else v)
+             for k, v in state.model.state_dict().items()}
+    out.update(tp_loss=aux["loss"].item(), tp_norm=norm, tp_full_norm=full_norm,
+               tp_sharded=len(names))
+    if keep:
+        out["tp_grads"], out["tp_state"] = on_host(grads), on_host(whole)
+    del state, step, grads, whole, params
+    torch.cuda.empty_cache()
+
+    model = build_model(backbone="resnet34", latent_dim=32, latent_injection="all", seed=0,
+                        device=ctx.device)
+    randomize_bn_stats(model, seed=1)
+    image, zs, big = inference_inputs(ctx.device)
+    ens, out["ensemble_counts"], out["ensemble_s"] = counted(
+        lambda: ensemble_sample_parallel(model, image, zs, ctx))
+    tiled, out["tiled_counts"], out["tiled_s"] = counted(
+        lambda: predict_tiled_sharded(model, big, zs[:1], ctx, patch_size=PATCH,
+                                      overlap=OVERLAP, batch_size=TILE_BATCH))
+    if keep:
+        out["ensemble"], out["tiled"] = ens.cpu(), tiled.cpu()
+    return out
+
+
+def inference_inputs(device) -> tuple:
+    """(a 1024^2 image, N = 10 latents, a 2848x4288 image), from seeds."""
+    g = torch.Generator(device=device).manual_seed(4)
+    image = torch.rand((ENSEMBLE_HW, ENSEMBLE_HW, 3), device=device, generator=g)
+    big = torch.rand((*IMAGE_HW, 3), device=device, generator=g)
+    zs = torch.randn((N_SAMPLES, 32), generator=torch.Generator().manual_seed(5))
+    return image, zs, big
+
+
+def rel_l2(got: dict, ref: dict) -> float:
+    ours = torch.cat([got[k].flatten() for k in ref])
+    theirs = torch.cat([v.flatten() for v in ref.values()])
+    return ((ours - theirs).norm() / theirs.norm()).item()
+
+
+def grads_held(label: str, got: dict, ref: dict, limit: float,
+               head: str = "final_conv") -> float:
+    """A two-rank step's gradient against the one-rank computation's: the
+    whole by relative L2 within `limit`, and the output conv `head` (which
+    no BN follows) per element within 1e-3 of its max |g|
+    (``tests/torch_train_parity.py``'s head check)."""
+    check(set(got) == set(ref), f"{label}: gradients of other parameters")
+    check(all(bool(torch.isfinite(v).all()) for v in got.values()),
+          f"{label}: a gradient is not finite")
+    rel = rel_l2(got, ref)
+    head_err = max((got[k] - ref[k]).abs().max().item() / ref[k].abs().max().item()
+                   for k in (f"{head}.weight", f"{head}.bias"))
+    worst = sorted(((rel_l2({k: got[k]}, {k: v}), k) for k, v in ref.items()
+                    if v.norm() > 0), reverse=True)[:3]
+    log(f"{label}: gradient relative L2 {rel:.3g} (limit {limit:g}), {head} max err "
+        f"{head_err:.3g} of its max |g| (limit 1e-3); worst tensors "
+        f"{[(k, float(f'{e:.3g}')) for e, k in worst]}")
+    check(rel <= limit, f"{label}: the gradient differs by {rel} (relative L2)")
+    check(head_err <= 1e-3, f"{label}: the {head} gradient differs by {head_err} of its max")
+    return rel
+
+
+def reorder_floor(config, images: torch.Tensor, masks: torch.Tensor,
+                  eps: torch.Tensor) -> float:
+    """The relative L2 between one rank's gradients of the batch and of the
+    same batch with its two halves swapped (the rows' noise with them): the
+    same function, summed in another order."""
+    grads = []
+    for rows in (torch.arange(PAR_BATCH), torch.arange(PAR_BATCH).roll(PAR_BATCH // 2)):
+        state = create_train_state(config, seed=0, device="cuda")
+        make_train_step(config, state.model).compute_gradients(
+            state, images[rows.cuda()], masks[rows.cuda()], 0.001, eps=eps[:, rows])
+        grads.append(on_host(device_grads(state.model)))
+        del state
+    return rel_l2(grads[1], grads[0])
+
+
+def held_to_harness(label: str, got: dict, ref: dict, lr: float) -> None:
+    """tests/torch_train_parity.py's bounds on a state after one step:
+    parameters within 2 lr (+ 1e-6), running statistics within 1e-4 + 1e-3
+    |ref|."""
+    err_p = max((got[k] - v).abs().max().item() for k, v in ref.items()
+                if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    err_s = max(((got[k] - v).abs() - 1e-3 * v.abs()).max().item()
+                for k, v in ref.items() if k.endswith(("running_mean", "running_var")))
+    log(f"{label}: parameters max err {err_p:.3g} (2 lr = {2 * lr:g}), running statistics "
+        f"max err beyond 1e-3 |ref| {err_s:.3g}")
+    check(err_p <= 2 * lr + 1e-6, f"{label}: parameters differ by {err_p} > 2 lr")
+    check(err_s <= 1e-4, f"{label}: running statistics differ beyond 1e-4 + 1e-3 |ref|")
+
+
+def phase_parallel() -> dict:
+    """Data, tensor and sample parallelism on the card (``parallel/``),
+    each rank a process started by ``parallel.launch``: (a) one rank over
+    NCCL; (b) two ranks over gloo sharing the card (NCCL where there are
+    two cards), held against the one-rank computations of this process.
+    -> the ranks' launch counts of the phase, summed."""
+    use_fp32_numerics()
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    total = launches()
+
+    (a,) = launch(rank_world_one, 1, device="cuda", timeout=300)
+    expected = expected_train_launches(1)
+    log(f"(a) one rank over {a['backend']}: DP step vs make_train_step, bf16 512^2 b16: loss "
+        f"{a['loss']:.6f}, same loss {a['same_loss']}, same parameters and statistics "
+        f"{a['same_state']}; cold steps {a['s']:.3f} / {a['dp_s']:.3f} s  [{smi}]")
+    log(f"(a) DP step launches {a['dp_counts']}  expected {expected}")
+    check(a["backend"] == "nccl", f"one rank ran over {a['backend']}, not NCCL")
+    check(a["same_loss"] and a["same_state"], "the one-rank DP step differs from the step")
+    check(a["dp_counts"] == expected == a["counts"],
+          f"DP step launches {a['dp_counts']} differ from the code's {expected}")
+    total = {k: total[k] + a["dp_counts"][k] for k in total}
+
+    share = torch.cuda.device_count() < 2
+    t0 = time.perf_counter()
+    ranks = launch(rank_parallel, 2, device="cuda", share_devices=share, timeout=900)
+    r0 = ranks[0]
+    log(f"(b) two ranks over {r0['backend']} ({'sharing the card' if share else 'a card each'})"
+        f": {time.perf_counter() - t0:.1f} s in all  [{smi}]")
+    for r in ranks:
+        for key in ("dp_counts", "explicit_counts", "tp_counts", "ensemble_counts",
+                    "tiled_counts"):
+            total = {k: total[k] + r[key][k] for k in total}
+    config = train_config(amp=False)
+    lr = config.learning_rate
+    images, masks = train_batch(9, PAR_BATCH)
+    eps = parallel_noise()
+
+    # the global-batch DP step = the one-rank step on the global batch
+    state = create_train_state(config, seed=0, device="cuda")
+    aux = make_train_step(config, state.model).compute_gradients(state, images, masks, 0.001)
+    ref_grads = on_host(device_grads(state.model))
+    state.optimizer.step()
+    ref_loss = aux["loss"].item()
+    log(f"(b) DP step fp32 (TF32 off), global batch {PAR_BATCH}: loss {r0['dp_loss']:.7f} vs "
+        f"the one-rank step's {ref_loss:.7f}; cold {r0['dp_cold_s']:.3f} s, warm "
+        f"{[round(t, 4) for t in r0['dp_step_s']]} s (8 rows a rank)")
+    check(abs(r0["dp_loss"] - ref_loss) <= 1e-5 + 2e-6 * abs(ref_loss),
+          "the DP step's loss differs from the one-rank step's")
+    floor = reorder_floor(config, images, masks, eps)
+    log(f"(b) one rank, the batch's halves swapped: gradient relative L2 {floor:.3g}")
+    grads_held("(b) DP step vs the one-rank step", r0["dp_grads"], ref_grads, DP_GRAD_LIMIT)
+    held_to_harness("(b) DP step vs the one-rank step", r0["dp_state"], host_state(state.model),
+                    lr)
+    per_rank = expected_train_launches(1, amp=False)
+    fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, resize=5, resize_row=1,
+                   resize_bwd=5)                  # the steps on fed noise draw none
+    for r in ranks:
+        check(r["dp_counts"] == per_rank and r["explicit_counts"] == fed == r["tp_counts"],
+              f"rank {r['rank']}: step launches {r['dp_counts']} / {r['explicit_counts']} / "
+              f"{r['tp_counts']} differ from the code's {per_rank} / {fed}")
+    del state
+    torch.cuda.empty_cache()
+
+    # the per-device step = its hand split: the halves' gradients and
+    # statistics averaged, one AdamW step
+    grads, stats, losses = [], [], []
+    for r in range(2):
+        rows = slice(r * PAR_BATCH // 2, (r + 1) * PAR_BATCH // 2)
+        state = create_train_state(config, seed=0, device="cuda")
+        aux = make_train_step(config, state.model).compute_gradients(
+            state, images[rows], masks[rows], 0.001, eps=eps[:, rows])
+        grads.append({k: p.grad.clone() for k, p in state.model.named_parameters()})
+        stats.append({k: v.clone() for k, v in state.model.state_dict().items()
+                      if "running_" in k})
+        losses.append(aux["loss"].item())
+    state = create_train_state(config, seed=0, device="cuda")
+    for k, p in state.model.named_parameters():
+        p.grad = (grads[0][k] + grads[1][k]) / 2
+    grads_held("(b) per-device step vs its hand split", r0["explicit_grads"],
+               on_host(device_grads(state.model)), SPLIT_GRAD_LIMIT)
+    state.optimizer.step()
+    ref = host_state(state.model)
+    ref.update({k: ((stats[0][k] + stats[1][k]) / 2).cpu() for k in stats[0]})
+    log(f"(b) per-device step: loss {r0['explicit_loss']:.7f} vs the hand split's "
+        f"{(losses[0] + losses[1]) / 2:.7f}")
+    check(abs(r0["explicit_loss"] - (losses[0] + losses[1]) / 2) <= 1e-5,
+          "the per-device step's loss differs from its hand split's")
+    held_to_harness("(b) per-device step vs its hand split", r0["explicit_state"], ref, lr)
+    del state, grads, stats
+    torch.cuda.empty_cache()
+
+    # the channel-sharded step = the unsharded step
+    tb = slice(0, TP_BATCH)
+    state = create_train_state(config, seed=0, device="cuda")
+    step = make_train_step(config, state.model)
+    aux = step.compute_gradients(state, images[tb], masks[tb], 0.001, eps=eps[:, tb])
+    ref_grads = on_host(device_grads(state.model))
+    state.optimizer.step()
+    log(f"(b) TP step (model axis 2, min_channels {TP_MIN_CHANNELS}, {r0['tp_sharded']} convs "
+        f"sharded), fp32 b{TP_BATCH}: loss {r0['tp_loss']:.7f} vs {aux['loss'].item():.7f}; "
+        f"clip norm {r0['tp_norm']:.6g} vs the gathered gradient's {r0['tp_full_norm']:.6g}")
+    check(abs(r0["tp_loss"] - aux["loss"].item()) <= 1e-5 + 2e-6 * abs(aux["loss"].item()),
+          "the TP step's loss differs from the unsharded step's")
+    grads_held("(b) TP step vs the unsharded step", r0["tp_grads"], ref_grads, SPLIT_GRAD_LIMIT)
+    check(all(abs(r["tp_norm"] - r["tp_full_norm"]) <= 1e-5 * r["tp_full_norm"] for r in ranks),
+          "the TP clip norm misses the sharded gradients' squares")
+    held_to_harness("(b) TP step vs the unsharded step", r0["tp_state"], host_state(state.model),
+                    lr)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the sample-parallel ensemble and the tile-sharded prediction
+    model = build_model(backbone="resnet34", latent_dim=32, latent_injection="all", seed=0,
+                        device="cuda")
+    randomize_bn_stats(model, seed=1)
+    image, zs, big = inference_inputs("cuda")
+    ref = decode_samples(model, image, zs, torch.device("cuda")).cpu()
+    err = (r0["ensemble"] - ref).abs().max().item()
+    log(f"(b) ensemble_sample_parallel, N={N_SAMPLES} at {ENSEMBLE_HW}^2: "
+        f"{max(r['ensemble_s'] for r in ranks):.3f} s; max err vs the one-rank decode {err:.3g}")
+    check(tuple(r0["ensemble"].shape) == (N_SAMPLES, ENSEMBLE_HW, ENSEMBLE_HW, 1)
+          and err <= 1e-5, "the sample-parallel ensemble differs from the one-rank decode")
+    ref = predict_with_patches(model, big, zs[:1], patch_size=PATCH, overlap=OVERLAP,
+                               batch_size=TILE_BATCH).cpu()
+    err = (r0["tiled"] - ref).abs().max().item()
+    log(f"(b) predict_tiled_sharded, {IMAGE_HW[0]}x{IMAGE_HW[1]}: "
+        f"{max(r['tiled_s'] for r in ranks):.3f} s; max err vs predict_with_patches {err:.3g}")
+    check(tuple(r0["tiled"].shape) == (*IMAGE_HW, 1) and err <= 1e-5,
+          "the tile-sharded prediction differs from predict_with_patches")
+    del model
+    torch.cuda.empty_cache()
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return total
+
+
+# ----- phase 16 ------------------------------------------------------------
+
+PRETRAIN_BATCH, PRETRAIN_STEPS = 8, 3
+# per step at 512^2: the encoder's 29 stride-1 conv + BN pairs; the masked
+# head's 5 upsamples and its resize to the input, forward and backward; the
+# contrastive views' two noise draws
+PRETEXT_LAUNCHES = {"masked": dict(conv_bn_stats=29, resize=6, resize_bwd=6),
+                    "contrastive": dict(conv_bn_stats=29, normal=2)}
+
+
+def phase_pretrain(root: Path) -> dict:
+    """Encoder pretraining and the profiling helpers on the card: both
+    pretexts at full width (resnet34, 512^2, batch 8, bf16), 3 steps each,
+    every parameter moved and finite and the launches held; ``cli.pretrain``
+    for one epoch on phase 13's set; ``cli.train --pretrained-encoder``
+    starting from that encoder bit for bit; ``time_fn``, ``track_memory``
+    and ``trace`` once each.  -> the phase's launch counts."""
+    os.environ["WANDB_MODE"] = "disabled"
+    os.environ["VAEUNET_CACHE_DIR"] = str(root / "cache")
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    total = launches()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.rand((PRETRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3), device="cuda", generator=g)
+    for pretext in ("masked", "contrastive"):
+        model = build_pretrain_model(pretext, "resnet34", seed=0, device="cuda")
+        state = create_pretrain_state(model, 1e-3, seed=0)
+        step = (make_pretrain_step(model) if pretext == "masked"
+                else make_contrastive_step(model))
+        before = {k: v.detach().clone() for k, v in model.named_parameters()}
+
+        def run():
+            return [step(state, images)[1].item() for _ in range(PRETRAIN_STEPS)]
+
+        losses, counts, sec = counted(run)
+        expected = launches(PRETRAIN_STEPS, **PRETEXT_LAUNCHES[pretext])
+        still = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+        log(f"{pretext} pretext, resnet34 512^2 b{PRETRAIN_BATCH} bf16: {PRETRAIN_STEPS} steps "
+            f"in {sec:.3f} s (the first cold), losses {[round(v, 5) for v in losses]}; "
+            f"unmoved {still or 'none'}; launches {counts}  expected {expected}  [{smi}]")
+        check(finite and not still and all(np.isfinite(losses)),
+              f"{pretext} pretext: parameters {still} unmoved or not finite")
+        check(counts == expected, f"{pretext} pretext launches {counts} differ from {expected}")
+        total = {k: total[k] + counts[k] for k in total}
+        if pretext == "masked":
+            def profile():
+                mean_s = profiling.time_fn(lambda: step(state, images), iters=3, warmup=1)
+                with profiling.trace(str(root / "trace")) as trace_path:
+                    step(state, images)
+                    torch.cuda.synchronize()
+                loss = profiling.track_memory(lambda: step(state, images)[1].item())()
+                return mean_s, trace_path, loss
+
+            (mean_s, trace_path, loss), counts, _ = counted(profile)
+            size = Path(trace_path).stat().st_size
+            expected = launches(6, **PRETEXT_LAUNCHES[pretext])
+            log(f"profiling: time_fn {mean_s:.4f} s a masked step (each window ends in a "
+                f"synchronize); track_memory ran one (loss {loss:.5f}, "
+                f"{profiling.device_memory_mb():.0f} MB allocated); trace {trace_path}, {size} "
+                f"bytes; launches of the 6 steps {counts}  expected {expected}")
+            check(size > 0 and mean_s > 0, "the profiling helpers wrote or timed nothing")
+            check(counts == expected, f"profiled steps' launches {counts} differ from {expected}")
+            total = {k: total[k] + counts[k] for k in total}
+        del model, state, step, before
+        torch.cuda.empty_cache()
+
+    data = str(root / "idrid")
+    out = root / "encoder_ssl"
+    ds = IDRIDDataset(data, split="train", scale=LOOP_SCALE, patch_size=TRAIN_HW,
+                      lesion_type="EX", balance_seed=0)
+    steps = len(ds) // PRETRAIN_BATCH
+    with in_dir(root):
+        path, counts, sec = counted(lambda: pretrain_cli.main(
+            ["--data-dir", data, "--scale", str(LOOP_SCALE), "--patch-size", str(TRAIN_HW),
+             "--batch-size", str(PRETRAIN_BATCH), "--epochs", "1", "--out", str(out)]))
+        expected = launches(steps, **PRETEXT_LAUNCHES["masked"])
+        log(f"cli.pretrain: one epoch of {steps} masked steps on {len(ds)} patches in "
+            f"{sec:.1f} s (dataset and cache included); {path}; launches {counts}  expected "
+            f"{expected}")
+        check(counts == expected, f"cli.pretrain launches {counts} differ from {expected}")
+        total = {k: total[k] + counts[k] for k in total}
+        enc = torch.load(path, map_location="cpu", weights_only=True)
+        state = train_cli.main(["--data-dir", data, "--scale", str(LOOP_SCALE), "--patch-size",
+                                str(TRAIN_HW), "--batch-size", str(TRAIN_BATCH),
+                                "--gradient-accumulation-steps", "1", "--epochs", "0",
+                                "--checkpoint-dir", str(root / "ckpt_ssl"),
+                                "--pretrained-encoder", str(out)])
+    got = host_state(state.model)
+    same = bool(enc) and all(torch.equal(got[k], v) for k, v in enc.items())
+    log(f"cli.train --pretrained-encoder: {len(enc)} encoder tensors, equal bit for bit: {same}")
+    check(same, "the train CLI did not start from the pretrained encoder")
+    del state
+    torch.cuda.empty_cache()
+    log(f"pretraining phase: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return total
+
+
 KERNELS = (
     ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:54"),
     ("reparam", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:87"),
@@ -1908,6 +2425,11 @@ def main() -> None:
         path_counts.append(phase_loop(Path(tmp)))
         log(f"phase 13: {time.perf_counter() - t_start:.1f} s")
         path_counts.append(phase_analysis(Path(tmp)))
+        log(f"phase 14: {time.perf_counter() - t_start:.1f} s")
+        path_counts.append(phase_parallel())
+        log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
+        path_counts.append(phase_pretrain(Path(tmp)))
+        log(f"phase 16: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]

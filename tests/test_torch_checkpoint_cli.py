@@ -2,9 +2,12 @@
 its train CLI (``python -m vaeunet_tpu_torch.cli.train``): a checkpoint
 gives back the parameters, BN buffers, AdamW state, generator state, step
 and host state bit for bit; the CLI's parser has every option and ``dest``
-of the top-level ``train.py`` with its defaults; the flags whose module is
-not ported raise (``--load`` of a ``.pth`` and its refusals:
-``tests/test_torch_analysis_cli.py``); the CLI trains, loads and resumes on the CPU."""
+of the top-level ``train.py`` with its defaults; ``--pretrained-encoder``
+starts the encoder from ``cli.pretrain``'s file and ``--num-devices``
+above 1 hands the run to ``parallel.dp.run_train_dp`` (``--load`` of a
+``.pth`` and its refusals: ``tests/test_torch_analysis_cli.py``; the
+data-parallel run itself: ``tests/test_torch_parallel_loop.py``); the CLI
+trains, loads and resumes on the CPU."""
 
 import argparse
 import json
@@ -18,6 +21,9 @@ from PIL import Image
 import train as jax_train_cli
 
 from vaeunet_tpu_torch.cli import train as cli
+from vaeunet_tpu_torch.parallel import dp
+from vaeunet_tpu_torch.training.pretrain import build_pretrain_model, encoder_subtree
+from vaeunet_tpu_torch.training.state import build_model
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 from vaeunet_tpu_torch.training import checkpoint
 
@@ -135,13 +141,43 @@ def test_parser_has_every_flag_and_default_of_train_py(monkeypatch):
         64, 0.5, False, False, "first", False, 2.5)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--pretrained-encoder", "enc"], "training/pretrain.py"),
-    (["--num-devices", "2"], "parallel/"),
-])
-def test_unported_flags_raise(argv, what):
-    with pytest.raises(NotImplementedError, match=what):
-        cli.main([*argv, "--device", "cpu"])
+@pytest.mark.parametrize("flag", ["--pretrained-encoder", "--num-devices"])
+def test_pretrained_encoder_and_num_devices_run(flag, synth_root, tmp_path, monkeypatch):
+    """The two flags that raised until their modules were ported.
+    ``--pretrained-encoder DIR``: zero epochs give back the state the loop
+    starts from, whose encoder is DIR/encoder.pt's bit for bit and whose
+    other weights are the seeded init's.  ``--num-devices 2``: the config,
+    the start weights and ``--resume`` reach ``run_train_dp`` on the CPU."""
+    monkeypatch.chdir(tmp_path)                       # the tracker writes ./runs
+    monkeypatch.setenv("VAEUNET_CACHE_DIR", str(tmp_path / "cache"))
+    args = ["--data-dir", str(synth_root), "--scale", "1", "--patch-size", "32",
+            "--batch-size", "2", "--gradient-accumulation-steps", "1", "--no-amp",
+            "--checkpoint-dir", str(tmp_path / "ckpt"), "--device", "cpu"]
+    config = cli.config_from_args(cli.get_parser().parse_args(args))
+    if flag == "--pretrained-encoder":
+        enc = encoder_subtree(build_pretrain_model("masked", config.backbone, seed=7,
+                                                   device="cpu").state_dict())
+        (tmp_path / "enc").mkdir()
+        torch.save(enc, tmp_path / "enc" / "encoder.pt")
+        state = cli.main([*args, "--epochs", "0", "--pretrained-encoder", str(tmp_path / "enc")])
+        got = state.model.state_dict()
+        init = build_model(config, seed=config.seed, device="cpu").state_dict()
+        assert enc and all(torch.equal(got[k], v) for k, v in enc.items())
+        assert all(torch.equal(got[k], v) for k, v in init.items() if k not in enc)
+        assert not all(torch.equal(got[k], init[k]) for k in enc)
+    else:
+        seen = {}
+
+        def run_train_dp(config, device, model_state, resume_from):
+            seen.update(config=config, device=device, model_state=model_state,
+                        resume_from=resume_from)
+            return {"step": 7}
+
+        monkeypatch.setattr(dp, "run_train_dp", run_train_dp)
+        out = cli.main([*args, "--epochs", "1", "--num-devices", "2", "--resume", "r"])
+        assert out == {"step": 7}
+        assert seen["config"].num_devices == 2 and seen["config"].epochs == 1
+        assert (seen["device"], seen["model_state"], seen["resume_from"]) == ("cpu", None, "r")
 
 
 @pytest.fixture(scope="module")

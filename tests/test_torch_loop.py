@@ -1,8 +1,9 @@
 """The port's training loop end to end on the CPU (``tests/test_loop.py``'s
 pattern and sizes: latent 8, patch 32, batch 2; resnet18 for time): two
 epochs train and checkpoint; a resumed run equals the unbroken one bit for
-bit; ``reset_best`` and ``best_preresume`` behave as in JAX; the eval
-padding does not bias the metrics."""
+bit; ``reset_best`` and ``best_preresume`` behave as in JAX; the loop
+takes the data-parallel hooks; the eval padding does not bias the
+metrics."""
 
 import dataclasses
 import json
@@ -20,6 +21,7 @@ from vaeunet_tpu_torch.training import (
     evaluate_model,
     load_config,
     make_eval_step,
+    make_train_step,
     restore_checkpoint,
     train_model,
 )
@@ -172,9 +174,40 @@ def test_reset_best_and_best_preresume(synth_root, tmp_path, reset_best):
     assert backup.step == before["global_step"]
 
 
-def test_multi_device_raises(synth_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        train_model(config(synth_root, tmp_path, num_devices=2), device="cpu")
+def test_loop_takes_the_data_parallel_hooks(synth_root, tmp_path):
+    """``train_step``, ``eval_step`` and ``place_batch`` (JAX
+    ``loop.py:116-117``), here the one-process steps wrapped to count
+    their calls, with the caller's state: batches are host-fed (no device
+    cache), every batch goes through ``place_batch``, and a rank that is
+    not the writer writes no checkpoint.  A config of 2 devices without
+    the hooks raises: one process drives one device."""
+    cfg = config(synth_root, tmp_path, epochs=1, num_devices=2)
+    state = create_train_state(cfg, seed=0, device="cpu")
+    calls = {"train": 0, "eval": 0, "place": 0}
+    plain_train = make_train_step(cfg, state.model, augment=True)
+    plain_eval = make_eval_step(cfg, state.model)
+
+    def train_step(st, images, masks, beta):
+        calls["train"] += 1
+        return plain_train(st, images, masks, beta)
+
+    def eval_step(images, masks, generator, valid):
+        calls["eval"] += 1
+        return plain_eval(images, masks, generator, valid)
+
+    def place(images, masks):
+        calls["place"] += 1
+        return torch.from_numpy(images), torch.from_numpy(masks)
+
+    report = {}
+    out = train_model(cfg, device="cpu", report=report, state=state, train_step=train_step,
+                      eval_step=eval_step, place_batch=place, writer=False)
+    steps = report["steps_per_epoch"]
+    assert out is state and state.step == steps == calls["train"] == calls["place"] > 0
+    assert calls["eval"] > 0 and report["device_train"] is None
+    assert not (tmp_path / "ckpt").exists()
+    with pytest.raises(ValueError, match="train_model_dp"):
+        train_model(cfg, device="cpu")
 
 
 def test_eval_padding_does_not_bias_metrics():

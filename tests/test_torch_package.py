@@ -43,9 +43,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "vaeunet_tpu_torch.analysis, vaeunet_tpu_torch.analysis.plots, "
             "vaeunet_tpu_torch.analysis.analyze, vaeunet_tpu_torch.analysis.visualize, "
             "vaeunet_tpu_torch.cli.analyze, vaeunet_tpu_torch.cli.visualize, "
-            "vaeunet_tpu_torch.cli.evaluate, vaeunet_tpu_torch.cli.predict; "
-            "from vaeunet_tpu_torch.cli import analyze, visualize, evaluate, predict; "
-            "[m.get_parser() for m in (analyze, visualize, evaluate, predict)]; "
+            "vaeunet_tpu_torch.cli.evaluate, vaeunet_tpu_torch.cli.predict, "
+            "vaeunet_tpu_torch.parallel, vaeunet_tpu_torch.parallel.mesh, "
+            "vaeunet_tpu_torch.parallel.dp, vaeunet_tpu_torch.parallel.tp, "
+            "vaeunet_tpu_torch.parallel.inference, vaeunet_tpu_torch.ops.collectives, "
+            "vaeunet_tpu_torch.training.pretrain, vaeunet_tpu_torch.cli.pretrain; "
+            "from vaeunet_tpu_torch.cli import analyze, visualize, evaluate, predict, pretrain; "
+            "[m.get_parser() for m in (analyze, visualize, evaluate, predict, pretrain)]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")

@@ -18,8 +18,12 @@ loop (``training.train_model``, ``cli.train``); the uncertainty analysis
 (``analysis.analyze_model``, ``analysis.visualize``, ``uncertainty``),
 multi-model fusion (``inference.fused_probability``), checkpoint loading
 (``compat.load_model``: a reference ``.pth`` or a run dir of this package)
-and the analyze, visualize, evaluate and predict CLIs (``cli``).  Entry
-points run on CUDA unless the caller passes ``device="cpu"``.
+and the analyze, visualize, evaluate and predict CLIs (``cli``); data,
+tensor and sample parallelism over ``torch.distributed`` (``parallel``:
+one process per device, started by ``parallel.launch``); encoder
+pretraining (``training.pretrain``, ``cli.pretrain``) and the profiling
+helpers (``utils.profiling``).  Entry points run on CUDA unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -10,9 +10,12 @@ Runs ``training.loop.train_model`` on the CUDA device (``--device cpu`` for
 the CPU).  ``--resume RUN_DIR`` restores the full training state from
 ``RUN_DIR/best``; ``--load`` takes only the model's weights, from a run dir
 of this package or a reference ``.pth`` (``compat/loading.py``; a JAX
-orbax run dir is refused there).  Flags whose module is not ported yet
-raise instead of being ignored: ``--pretrained-encoder``
-(``training/pretrain.py``) and ``--num-devices`` above 1 (``parallel/``).
+orbax run dir is refused there).  ``--pretrained-encoder DIR`` starts the
+encoder from ``DIR/encoder.pt``, written by ``cli.pretrain``
+(``train.py:187-199``).  ``--num-devices N`` above 1 trains data-parallel
+on N ranks (``parallel.dp.run_train_dp``, ``train.py:201-203``): N cards,
+or with ``--device cpu`` N gloo ranks on the CPU; fewer cards than N
+raise.
 """
 
 import argparse
@@ -84,7 +87,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mask-suffix", type=str, default="_mask")
     parser.add_argument("--checkpoint-dir", type=str, default="./checkpoints")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="Data-parallel devices (only 1: parallel/ is not ported yet)")
+                        help="Data-parallel devices: N > 1 trains on N ranks, one a card "
+                        "(--device cpu: N processes on the CPU)")
     parser.add_argument("--lr-patience", type=int, default=None,
                         help="Plateau-LR patience override (validations)")
     parser.add_argument("--lr-factor", type=float, default=None,
@@ -99,8 +103,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pretrained-encoder", type=str, default=None,
                         metavar="DIR",
                         help="Init the ResNet encoder from a self-supervised "
-                        "checkpoint (needs training/pretrain.py, not ported "
-                        "yet: raises)")
+                        "checkpoint: DIR/encoder.pt of cli.pretrain")
     parser.add_argument("--oversample-large-lesions", type=float, default=0.0,
                         dest="oversample_lesion", metavar="K",
                         help="Replicate large-lesion train patches "
@@ -170,24 +173,17 @@ def config_from_args(args):
     )
 
 
-def refuse_unported(args) -> None:
-    """Raise for every flag whose module is not ported yet."""
-    if args.pretrained_encoder:
-        raise NotImplementedError("--pretrained-encoder needs training/pretrain.py, which is "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
-    if args.num_devices > 1:
-        raise NotImplementedError(f"--num-devices {args.num_devices} needs parallel/, which is "
-                                  "not ported yet (ROADMAP Queue 1 item 7)")
-
-
 def main(argv: Optional[Sequence[str]] = None):
+    """-> the final ``TrainState``; with ``--num-devices`` above 1, rank 0's
+    final ``{"step", "model"}`` (``parallel.dp.run_train_dp``)."""
     args = get_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    refuse_unported(args)
 
-    from vaeunet_tpu_torch.compat.loading import load_state
+    from vaeunet_tpu_torch.compat.loading import load_encoder_state, load_state
     from vaeunet_tpu_torch.device import resolve_device
     from vaeunet_tpu_torch.training.loop import train_model
+    from vaeunet_tpu_torch.training.pretrain import transplant_encoder
+    from vaeunet_tpu_torch.training.state import build_model
 
     device = resolve_device(args.device)
     logging.info("Using device: %s", device)
@@ -196,6 +192,15 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.load:
         model_state, _ = load_state(args.load)
         logging.info("Loaded weights from %s", args.load)
+    if args.pretrained_encoder:
+        if model_state is None:     # the init train_model would make
+            model_state = build_model(config, seed=config.seed, device=device).state_dict()
+        model_state = transplant_encoder(model_state, load_encoder_state(args.pretrained_encoder))
+        logging.info("Initialized encoder from %s", args.pretrained_encoder)
+    if config.num_devices > 1:
+        from vaeunet_tpu_torch.parallel.dp import run_train_dp
+        return run_train_dp(config, device=device.type, model_state=model_state,
+                            resume_from=args.resume)
     return train_model(config, model_state=model_state, resume_from=args.resume, device=device)
 
 

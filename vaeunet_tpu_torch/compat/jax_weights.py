@@ -81,6 +81,30 @@ def _encoder(sd: Dict, params: Mapping, stats: Mapping, prefix: str) -> None:
             _block(sd, params[name], stats[name], f"{prefix}layer{si + 1}.{bi}")
 
 
+def convert_jax_pretrain(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax variables of a pretext model of ``vaeunet_tpu/training/
+    pretrain.py`` -> state_dict of its port (``training/pretrain.py``):
+    ``MaskedReconstructor`` (``head_conv{i}`` -> ``head_convs.{i}``,
+    ``head_bn{i}`` -> ``head_bns.{i}``, ``head_out``) or
+    ``ContrastiveProjector`` (``proj1`` / ``proj2``: Dense kernels [in, out]
+    -> Linear weights [out, in])."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, params["encoder"], stats["encoder"], "encoder.")
+    i = 0
+    while f"head_conv{i}" in params:
+        _conv(sd, params[f"head_conv{i}"], f"head_convs.{i}")
+        _bn(sd, params[f"head_bn{i}"], stats[f"head_bn{i}"], f"head_bns.{i}")
+        i += 1
+    if "head_out" in params:
+        _conv(sd, params["head_out"], "head_out")
+    for name in ("proj1", "proj2"):
+        if name in params:
+            sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
+            sd[f"{name}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
 def convert_jax_unet_resnet(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax variables of ``vaeunet_tpu.models.UNetResNet`` -> state_dict of
     ``vaeunet_tpu_torch.models.UNetResNet``."""

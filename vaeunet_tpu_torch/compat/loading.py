@@ -8,7 +8,10 @@ rebuilds the model from the stored hyperparameters, and returns
 
 A run directory of the JAX package holds an orbax checkpoint, which only
 orbax can read, and orbax imports jax; this package never imports jax, so
-such a directory is refused with ``NotImplementedError``.
+such a directory is refused with ``NotImplementedError``.  The same holds
+for a pretrained encoder (:func:`load_encoder_state`): ``cli.pretrain``'s
+``encoder.pt`` loads, the JAX script's orbax ``encoder`` directory is
+refused.
 """
 
 from __future__ import annotations
@@ -83,3 +86,19 @@ def load_model(path: str, overrides: Optional[Dict[str, Any]] = None,
     model = build_model(config, device=device)
     model.load_state_dict(sd)
     return model.eval(), config
+
+
+def load_encoder_state(path: str) -> Dict[str, torch.Tensor]:
+    """The encoder state (``encoder.*`` entries) that ``cli.pretrain``
+    wrote: ``<path>/encoder.pt``, or `path` itself when it is that file.
+    A JAX encoder directory (``<path>/encoder``, orbax) is refused."""
+    p = Path(path)
+    f = p if p.is_file() else p / "encoder.pt"
+    if f.is_file():
+        return torch.load(f, map_location="cpu", weights_only=True)
+    if (p / "encoder").is_dir():
+        raise NotImplementedError(
+            f"{p / 'encoder'} is an orbax checkpoint of the JAX package's pretraining "
+            "script, which needs orbax and therefore jax, and vaeunet_tpu_torch never "
+            "imports jax: pretrain with python -m vaeunet_tpu_torch.cli.pretrain")
+    raise FileNotFoundError(f"no pretrained encoder at {path} (expected {f})")

@@ -53,46 +53,42 @@ def dice_loss_metric(pred, target, multiclass: bool = False):
     return 1.0 - fn(pred, target)
 
 
-def iou_score(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False, valid=None):
-    p, t, _ = _binarize(pred, target, apply_sigmoid, valid)
-    intersection = torch.sum(p * t)
-    union = torch.sum(p) + torch.sum(t) - intersection
-    return (intersection + epsilon) / (union + epsilon)
-
-
-def precision_recall(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False,
-                     valid=None):
-    p, t, _ = _binarize(pred, target, apply_sigmoid, valid)
-    tp = torch.sum(p * t)
-    fp = torch.sum(p) - tp
-    fn = torch.sum(t) - tp
-    return (tp + epsilon) / (tp + fp + epsilon), (tp + epsilon) / (tp + fn + epsilon)
-
-
-def specificity(pred, target, epsilon: float = 1e-6, apply_sigmoid: bool = False, valid=None):
+def pooled_sums(pred: torch.Tensor, target: torch.Tensor, apply_sigmoid: bool = False,
+                valid=None) -> torch.Tensor:
+    """The five sums every metric of :func:`get_all_metrics` pools, as one
+    fp32 [5] tensor: Σ p·t, Σ p, Σ t, Σ w and Σ w·(p == t) over the
+    binarized, row-masked batch.  Sums of ranks' batches are the sums of
+    their union (each is a count, exact in fp32 up to 2^24 pixels)."""
     p, t, w = _binarize(pred, target, apply_sigmoid, valid)
-    tn = torch.sum(w) - torch.sum(p) - torch.sum(t) + torch.sum(p * t)
-    fp = torch.sum(p) - torch.sum(p * t)
-    return (tn + epsilon) / (tn + fp + epsilon)
-
-
-def accuracy(pred, target, apply_sigmoid: bool = False, valid=None):
-    p, t, w = _binarize(pred, target, apply_sigmoid, valid)
-    return torch.sum(w * (p == t).float()) / torch.sum(w)
+    return torch.stack([torch.sum(p * t), torch.sum(p), torch.sum(t), torch.sum(w),
+                        torch.sum(w * (p == t).float())])
 
 
 def get_all_metrics(pred: torch.Tensor, target: torch.Tensor, epsilon: float = 1e-6,
                     apply_sigmoid: bool = False, valid=None) -> Dict[str, torch.Tensor]:
     """dice / iou / precision / recall / specificity / accuracy at 0.5.
     (metrics.py:98-117)"""
-    prec, rec = precision_recall(pred, target, epsilon, apply_sigmoid, valid)
+    return metrics_from_sums(pooled_sums(pred, target, apply_sigmoid, valid), epsilon)
+
+
+def metrics_from_sums(sums: torch.Tensor, epsilon: float = 1e-6) -> Dict[str, torch.Tensor]:
+    """The six metrics from :func:`pooled_sums`, each in the arithmetic of
+    its JAX function (``vaeunet_tpu/metrics.py:54-118``): Dice 1.0 where
+    both sides are empty; precision tp / (tp + fp), recall tp / (tp + fn),
+    specificity tn / (tn + fp), each ε-smoothed.  The data-parallel eval
+    step pools the sums of all ranks' rows first."""
+    inter, ps, ts, ws, agree = sums.unbind()
+    denominator = ps + ts
+    dice = (2.0 * inter + epsilon) / (denominator + epsilon)
+    fp = ps - inter
+    tn = ws - ps - ts + inter
     return {
-        "dice": dice_score(pred, target, epsilon, apply_sigmoid, valid),
-        "iou": iou_score(pred, target, epsilon, apply_sigmoid, valid),
-        "precision": prec,
-        "recall": rec,
-        "specificity": specificity(pred, target, epsilon, apply_sigmoid, valid),
-        "accuracy": accuracy(pred, target, apply_sigmoid, valid),
+        "dice": torch.where(denominator == 0, torch.ones_like(dice), dice),
+        "iou": (inter + epsilon) / (ps + ts - inter + epsilon),
+        "precision": (inter + epsilon) / (inter + fp + epsilon),
+        "recall": (inter + epsilon) / (inter + (ts - inter) + epsilon),
+        "specificity": (tn + epsilon) / (tn + fp + epsilon),
+        "accuracy": agree / ws,
     }
 
 

@@ -22,6 +22,16 @@ directly (``models/vae_unet.py``).  :class:`ConvTranspose2x`, the plain
 UNet's learned upsample, runs on cuDNN (``F.conv_transpose2d``): the JAX
 package has no Pallas kernel for it.
 
+Under data parallelism with global-batch BN (``parallel/dp.py``, the
+counterpart of the JAX package's pjit step, whose BN sees the global
+logical batch, ``parallel/dp.py:4-9``), a training-mode :class:`BatchNorm`
+whose ``group`` is set sums its per-channel fp32 moments over the group's
+ranks (``ops/collectives.py``, differentiable, so their cotangents are
+summed too) and normalizes with the counts of the whole group: the conv
+kernel's (s, q) at the :func:`conv3x3_bn` sites, fp32 Σx and Σx² at the
+plain sites (the strided convs, the 1x1 downsamples, the latent and gate
+BNs).  ``group`` is None outside such a step.
+
 Inside the recompute of a rematerialized block (``ops/remat.py``) a
 training-mode :class:`BatchNorm` normalizes as it did in the forward but
 leaves its running statistics alone, so that they move once a step; under
@@ -37,6 +47,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from vaeunet_tpu_torch.ops import remat
+import torch.distributed as dist
+
+from vaeunet_tpu_torch.ops.collectives import all_reduce_sum
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
 from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats, fold_cotangents
 
@@ -55,6 +68,12 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+    def conv_stats(self, x: torch.Tensor, weight: torch.Tensor):
+        """(y, Σy, Σy²) of this conv at `weight` through the conv + moments
+        kernel (:func:`conv3x3_bn`'s route; a column-parallel conv of
+        ``parallel/tp.py`` gathers its slice's)."""
+        return conv3x3_bn_stats(x, weight)
 
     def takes_bn_stats_kernel(self) -> bool:
         """3x3, stride 1, pad 1, no bias, no groups or dilation: the shape
@@ -80,10 +99,17 @@ class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5): biased batch variance to
     normalize, unbiased to update the running variance."""
 
+    # the data-parallel group whose ranks' batches a training-mode forward
+    # normalizes together (set for the duration of a global-batch step)
+    group = None
+
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.group is not None:
+            x32 = x.float()
+            return self.forward_moments(x, x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
         if self.training and remat.bn_frozen():
             # the same call on copies of the running statistics: the same
             # output, and the update lands in the copies.  Not None instead:
@@ -99,9 +125,13 @@ class BatchNorm(nn.BatchNorm2d):
         var = max(q/n - mean^2, 0) with n = numel / C; running statistics
         move by momentum with the unbiased var * n / (n - 1); the math is
         fp32 and the output takes y's type.  Differentiable in y, s, q and
-        the affine parameters."""
+        the affine parameters.  With ``group`` set, s and q are summed over
+        its ranks first and n counts all their rows."""
         c = y.shape[1]
         n = y.numel() // c
+        if self.group is not None:
+            s, q = all_reduce_sum(torch.stack([s, q]), self.group).unbind()
+            n *= dist.get_world_size(self.group)
         mean = s / n
         var = torch.clamp(q / n - mean * mean, min=0.0)
         if not remat.bn_frozen():
@@ -176,7 +206,7 @@ def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.
         return bn_relu(y, bn) if relu else bn(y)
     w = conv.weight.to(x.dtype)
     if conv.takes_bn_stats_kernel():
-        y, s, q = _kept(conv, x, w, lambda: conv3x3_bn_stats(x, w))
+        y, s, q = _kept(conv, x, w, lambda: conv.conv_stats(x, w))
         y = bn.forward_moments(y, s, q)
     else:
         (y,) = _kept(conv, x, w, lambda: (conv._conv_forward(x, w, None),))

@@ -25,6 +25,18 @@ def seed_from_generator(generator: torch.Generator) -> int:
     return int(s.item()) & ((1 << 64) - 1)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, i: int) -> int:
+    """A seed for stream `i` of `seed` (the role of ``jax.random.fold_in``):
+    splitmix64 of seed + (i + 1) * 2^64 / phi."""
+    z = (seed + (i + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def gaussian_like(generator: Optional[torch.Generator], shape: Sequence[int],
                   device, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """eps ~ N(0, 1) of `shape` on `device`, or the given `eps`."""

@@ -1,7 +1,7 @@
 """Training: config, state, steps, the plateau schedule, checkpoints and
 the loop.  Port of ``vaeunet_tpu/training`` (``config``, ``state``,
-``step``, ``schedule``, ``checkpoint``, ``loop``; encoder pretraining,
-``pretrain.py``, is not ported yet)."""
+``step``, ``schedule``, ``checkpoint``, ``loop``, and encoder
+pretraining, ``pretrain``)."""
 
 from vaeunet_tpu_torch.training.checkpoint import (
     load_config,

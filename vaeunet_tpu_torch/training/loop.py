@@ -21,8 +21,13 @@ the host ``Loader``'s batches reach the device through pinned memory
 aux stays on the device until a flush point (a validation, the epoch's end):
 no host sync a step.
 
-One device only: ``config.num_devices > 1`` raises until ``parallel/`` is
-ported.
+Data parallelism (``parallel/dp.py::train_model_dp``, one call per rank)
+comes in through the hooks the JAX loop takes (``loop.py:116-117``):
+``train_step``, ``eval_step`` and ``place_batch`` (this rank's rows of a
+host batch), with the rank's ``state``; batches are then host-fed, as JAX
+feeds them under DP, and only the rank with ``writer`` set writes
+checkpoints and tracking.  A config of ``num_devices > 1`` without the
+hooks raises: one process is one device.
 """
 
 from __future__ import annotations
@@ -165,10 +170,32 @@ def choose_device_cache(config: TrainConfig, train_dataset, val_dataset, device)
     return None, None
 
 
+class _SilentTracker:
+    """The tracker of a rank that writes nothing (every rank of a
+    data-parallel run but the writer)."""
+
+    def update_config(self, cfg) -> None:
+        pass
+
+    def log(self, metrics, step=None) -> None:
+        pass
+
+    def log_image(self, name, image, masks=None) -> None:
+        pass
+
+    def summary(self, values) -> None:
+        pass
+
+    def finish(self, **final) -> None:
+        pass
+
+
 def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Tensor]] = None,
                 tracker: Optional[Tracker] = None, train_dataset=None, val_dataset=None,
                 resume_from: Optional[str] = None, device=None,
-                report: Optional[Dict[str, Any]] = None) -> TrainState:
+                report: Optional[Dict[str, Any]] = None, train_step=None, eval_step=None,
+                place_batch=None, state: Optional[TrainState] = None,
+                writer: bool = True) -> TrainState:
     """Train `config`'s model; -> the final state.  `model_state` (a state
     dict of this package's model) replaces the seeded init; `device`: CUDA
     unless ``"cpu"``.  `report`, a dict the caller passes, receives the
@@ -176,12 +203,19 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
     ``start_epoch``, ``step_times`` (host clock from the end of one step to
     the end of the next, validations left out; the loop makes no sync a
     step, so once the launch queue is full this is the device's rate) and
-    ``val_times`` (each validation, ending in its metrics' fetch)."""
+    ``val_times`` (each validation, ending in its metrics' fetch).
+
+    The data-parallel hooks (module docstring): ``train_step(state, images,
+    masks, beta)`` and ``eval_step(images, masks, generator, valid)`` in
+    place of the config's steps, ``place_batch(images, masks)`` in place of
+    the pinned copy, ``state`` in place of a fresh one (the steps' model);
+    ``writer=False`` writes no checkpoint, backup or tracking."""
     report = {} if report is None else report
-    if config.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: multi-device training needs parallel/, "
-            "which is not ported yet (ROADMAP Queue 1 item 7)")
+    hooked = train_step is not None or eval_step is not None or place_batch is not None
+    if config.num_devices > 1 and not hooked:
+        raise ValueError(
+            f"num_devices={config.num_devices}: one process drives one device; run "
+            "parallel.train_model_dp in each rank (parallel.launch)")
     device = resolve_device(device)
 
     if config.lesion_type == "ALL" and config.n_classes == 1:
@@ -194,7 +228,9 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
         raise RuntimeError(f"Empty dataset for lesion type {config.lesion_type}")
     log.info("Dataset sizes: train=%d val=%d", len(train_dataset), len(val_dataset))
 
-    device_train, device_val = choose_device_cache(config, train_dataset, val_dataset, device)
+    # the steps of the hooks take host-fed batches (loop.py:160-161)
+    device_train, device_val = ((None, None) if hooked else
+                                choose_device_cache(config, train_dataset, val_dataset, device))
     eff_batch = config.batch_size * max(1, config.gradient_accumulation_steps)
     train_loader = Loader(train_dataset, eff_batch, shuffle=True, seed=config.seed,
                           index_only=device_train is not None)
@@ -203,6 +239,8 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
     if len(train_loader) == 0:
         raise RuntimeError(f"Train set smaller than effective batch ({eff_batch})")
 
+    if not writer:
+        tracker = _SilentTracker()
     tracker = tracker or Tracker(config=dict(
         epochs=config.epochs, batch_size=config.batch_size,
         learning_rate=config.learning_rate, img_scale=config.img_scale,
@@ -210,16 +248,17 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
         lesion_type=config.lesion_type, backbone=config.backbone,
         pretrained=config.pretrained, seed=config.seed))
 
-    state = create_train_state(config, seed=config.seed, device=device)
+    state = state or create_train_state(config, seed=config.seed, device=device)
     if model_state is not None:
         state.model.load_state_dict(model_state)
     # the evaluation's latent draws (the state's generator is seeded seed + 1)
     eval_generator = torch.Generator().manual_seed(int(config.seed) + 2)
-    train_step = make_train_step(config, state.model, augment=True,
-                                 indexed=device_train is not None,
-                                 gather=device_train.make_gather() if device_train else None)
-    eval_step = make_eval_step(config, state.model, indexed=device_val is not None,
-                               gather=device_val.make_gather() if device_val else None)
+    train_step = train_step or make_train_step(
+        config, state.model, augment=True, indexed=device_train is not None,
+        gather=device_train.make_gather() if device_train else None)
+    eval_step = eval_step or make_eval_step(
+        config, state.model, indexed=device_val is not None,
+        gather=device_val.make_gather() if device_val else None)
 
     annealer = KLAnnealer(kl_start=0.0, kl_end=config.beta, warmup_epochs=config.kl_anneal_epochs)
     scheduler = ReduceLROnPlateau.for_lesion(config.lesion_type)
@@ -256,7 +295,7 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
         # a resumed run that keeps improving overwrites <run_dir>/best; keep
         # the restored-from weights recoverable (loop.py:250-264)
         src = Path(resume_from) / "best"
-        if src.resolve() == (Path(run_dir) / "best").resolve() and src.exists():
+        if writer and src.resolve() == (Path(run_dir) / "best").resolve() and src.exists():
             backup = Path(run_dir) / "best_preresume"
             if not backup.exists():
                 shutil.copytree(src, backup)
@@ -292,7 +331,7 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
         if val_score > best_val_score:
             best_val_score = val_score
             no_improvement = 0
-            if config.save_checkpoint:
+            if config.save_checkpoint and writer:
                 host_state = {"epoch": epoch, "global_step": global_step,
                               "best_val_score": best_val_score,
                               "scheduler": scheduler.state_dict(),
@@ -339,7 +378,8 @@ def train_model(config: TrainConfig, model_state: Optional[Mapping[str, torch.Te
                 state, aux = train_step(state, device_train.images, device_train.masks,
                                         device_train.batch_indices(batch["idx"]), beta)
             else:
-                images, masks = stage_host_batch(device, batch["image"], batch["mask"])
+                images, masks = (place_batch(batch["image"], batch["mask"]) if place_batch
+                                 else stage_host_batch(device, batch["image"], batch["mask"]))
                 state, aux = train_step(state, images, masks, beta)
             report["step_times"].append(time.perf_counter() - t0)
             global_step += 1

@@ -1,6 +1,18 @@
-"""Where a serving request's or a training step's device time goes.  Port
-of the tracing role of ``vaeunet_tpu/utils/profiling.py`` (its ``trace``
-context manager around ``jax.profiler``), here over ``torch.profiler``.
+"""Profiling and memory observability.  Port of
+``vaeunet_tpu/utils/profiling.py``:
+
+- :func:`device_memory_mb`   live device memory (``torch.cuda.memory_allocated``),
+                             None on the CPU
+- :func:`log_memory_usage`   host RSS and device memory (analyze_model.py:38-45)
+- :func:`track_memory`       decorator logging the host/device memory deltas and
+                             the time around a call (visualize_vae.py:22-46)
+- :func:`time_fn`            mean seconds a call, each window ended by
+                             ``torch.cuda.synchronize()`` or a host fetch
+- :func:`trace`              ``torch.profiler`` over a block, written as a Chrome
+                             trace (Perfetto, chrome://tracing)
+
+and, new in the port, where a serving request's or a training step's
+device time goes:
 
     python -m vaeunet_tpu_torch.utils.profiling            # one request
     python -m vaeunet_tpu_torch.utils.profiling --train    # one train step
@@ -22,16 +34,142 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
+import logging
 import time
 from collections import defaultdict
-from typing import Callable, Dict
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
 from vaeunet_tpu_torch import build_model, segmentation_distribution, uncertainty_maps
 from vaeunet_tpu_torch import use_fp32_numerics
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
+
+log = logging.getLogger(__name__)
+
+
+def _host_rss_mb() -> float:
+    try:
+        import psutil
+        return psutil.Process().memory_info().rss / 1e6
+    except ImportError:
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS"):
+                        return float(line.split()[1]) / 1e3
+        except OSError:
+            pass
+        return float("nan")
+
+
+def device_memory_mb(device=None) -> Optional[float]:
+    """Live device memory in MB (``torch.cuda.memory_allocated``) of
+    `device` (default: the current CUDA device); None on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(device) / 1e6
+
+
+def log_memory_usage(prefix: str = "") -> None:
+    """(analyze_model.py:38-45)"""
+    dev = device_memory_mb()
+    dev_s = f", device {dev:.0f}MB" if dev is not None else ""
+    log.info("%s host RSS %.0fMB%s", prefix, _host_rss_mb(), dev_s)
+
+
+def track_memory(fn: Callable) -> Callable:
+    """Decorator logging host/device memory deltas and the time around
+    `fn` (visualize_vae.py:22-46)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        before_h, before_d = _host_rss_mb(), device_memory_mb()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        after_h, after_d = _host_rss_mb(), device_memory_mb()
+        dev_s = ""
+        if before_d is not None and after_d is not None:
+            dev_s = f", device {before_d:.0f}->{after_d:.0f}MB"
+        log.info("[%s] %.2fs, host RSS %.0f->%.0fMB%s",
+                 fn.__name__, dt, before_h, after_h, dev_s)
+        return result
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "torch_trace") -> Iterator[str]:
+    """``torch.profiler`` over the block (the CPU, and CUDA where there is
+    a card) -> yields the path of the Chrome trace it writes,
+    ``<log_dir>/trace.json``, when the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    path = Path(log_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    out = path / "trace.json"
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield str(out)
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out))
+        log.info("profiler trace written to %s", out)
+
+
+def _first_tensor(out: Any) -> Optional[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        for item in out:
+            t = _first_tensor(item)
+            if t is not None:
+                return t
+    return None
+
+
+def _finish(out: Any) -> None:
+    """Wait for `out`: ``torch.cuda.synchronize()`` for a CUDA result, else
+    a host fetch of one value of its first tensor."""
+    t = _first_tensor(out)
+    if t is None:
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    else:
+        t.detach().reshape(-1)[:1].tolist()
+
+
+def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,
+            fetch: Callable[[Any], None] = _finish, **kwargs) -> float:
+    """Mean seconds a call of ``fn(*args, **kwargs)`` over `iters` calls
+    after `warmup`, each window ended by `fetch` of the last result."""
+    for _ in range(warmup):
+        out = fn(*args, **kwargs)
+    if warmup:
+        fetch(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kwargs)
+    fetch(out)
+    return (time.perf_counter() - t0) / iters
+
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (
