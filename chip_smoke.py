@@ -88,8 +88,10 @@ the card, in phases that each fail the run with a non-zero exit:
    (``explicit=True``) against its hand split, the channel-sharded step
    (model axis 2, ``min_channels`` 256, batch 4) against the unsharded one,
    all within tests/torch_train_parity.py's bounds, and its clip norm
-   against the gathered gradient's; ``ensemble_sample_parallel`` (N=10,
-   1024^2) against the one-rank decode and ``predict_tiled_sharded`` of a
+   against the gathered gradient's; the plain UNet's TP gradient (its
+   transposed convs row-parallel) against the unsharded model's whose
+   transposed convs sum their input-channel halves as the ranks do;
+   ``ensemble_sample_parallel`` (N=10, 1024^2) against the one-rank decode and ``predict_tiled_sharded`` of a
    2848x4288 image against ``predict_with_patches``, atol 1e-5; the ranks'
    step launches held;
 16. encoder pretraining and the profiling helpers: the masked and the
@@ -107,8 +109,12 @@ the resnet34 step lacks (the resnet50 decoder's [16,2048,16,16] -> 32^2,
 the bilinear UNet's [16,64,256,256] -> 512^2), the one-channel resizes of
 those paths (the mask downsamples by 4, 8 and 16 and the request's
 upscale) bit for bit, ``bn_relu`` at phase 9's fp32 shapes (its
-widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]), and the
-noise kernel at phase 13's augmentation shape [16,512,512,3].
+widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]), the
+noise kernel at phase 13's augmentation shape [16,512,512,3], phase 16's
+[8,512,512,3] and counts off a multiple of 4, and the bf16 Ci <= 8 conv
+route at Ci 1, 3, 4 and 8 and at the plain UNet's [16,3,512,512]->64
+(timed beside the wgmma kernel it replaces there, F.conv2d + 2 sums and,
+in fp32, the fp32 kernel beside fp32 F.conv2d + 2 sums).
 
 Serving and every comparison run in full fp32 (TF32 off for cuDNN
 convolutions and matmuls); the training step of phase 6 in bf16.  The last
@@ -156,6 +162,7 @@ from vaeunet_tpu_torch.inference import predict_with_patches
 from vaeunet_tpu_torch.inference.tiled import adaptive_overlap, compute_tile_grid
 from vaeunet_tpu_torch.models import UNetResNet, build_unet
 from vaeunet_tpu_torch.ops import _ext, collectives
+from vaeunet_tpu_torch.ops.layers import ConvTranspose2x
 from vaeunet_tpu_torch.parallel import launch, make_dp_train_step, make_mesh, shard_batch
 from vaeunet_tpu_torch.parallel.inference import (
     decode_samples,
@@ -198,7 +205,9 @@ PATCH, OVERLAP, TILE_BATCH = 512, 100, 8
 N_SAMPLES, TEMPERATURE = 10, 1.0
 N_REQUESTS = 3
 # scalar operations per element, for the operations bound
-PHILOX_BOX_MULLER_OPS = 146   # 10 Philox rounds (~100 integer ops) + uniforms + log/sqrt/cos
+# the noise kernel: one Philox4x32-10 call (10 rounds, ~100 integer ops) for 4
+# elements, and the uniforms, log, sqrt, sincos and products (~56) for 2
+NORMAL_OPS = 100 / 4 + 56 / 2
 BN_RELU_OPS = 3               # mul, add, max
 RESIZE_OPS = 9                # 3 lerps of (sub, mul, mul, add) sharing the (1 - lambda)
 
@@ -525,10 +534,17 @@ def paired_ms(fns: dict, iters: int, rounds: int = 3) -> dict:
 
 
 AUG_NOISE_SHAPE = (16, 512, 512, 3)    # the augmentation's Gauss noise, one draw a step
+PRETEXT_NOISE_SHAPE = (8, 512, 512, 3)  # the contrastive pretext's, 2 draws a step
+# counts off a multiple of 4 (the kernel's masked tail) beside the paths' shapes
+NOISE_SHAPES = ((8192, 64), (3, 32), (1, 32), (7, 5), (1, 33), AUG_NOISE_SHAPE,
+                PRETEXT_NOISE_SHAPE)
 
 
 def kernel_noise(table: dict) -> None:
-    for shape in ((8192, 64), (3, 32), (1, 32), AUG_NOISE_SHAPE):
+    """Each shape against the plain stream (1e-5: the ulps of log, sin and
+    cos), a repeat bit for bit, a new seed different, the draw a prefix of a
+    longer one; moments at the large ones; times beside torch.randn."""
+    for shape in NOISE_SHAPES:
         z = reparam_mod.normal(shape, 11, "cuda")
         ref = reparam_mod.normal_plain(shape, 11, "cuda")
         torch.cuda.synchronize()
@@ -538,35 +554,40 @@ def kernel_noise(table: dict) -> None:
               f"normal {shape}: same seed gave different values")
         check(not torch.equal(z, reparam_mod.normal(shape, 12, "cuda")),
               f"normal {shape}: a new seed gave the same values")
-        if shape in ((8192, 64), AUG_NOISE_SHAPE):
+        n = z.numel()
+        check(torch.equal(z.flatten(), reparam_mod.normal((n + 3,), 11, "cuda")[:n]),
+              f"normal {shape}: not a prefix of a longer draw")
+        if n >= 8192 * 64:
             m, s = z.mean().item(), z.std().item()
             check(abs(m) < 0.01 and abs(s - 1) < 0.01, f"normal moments {m} {s}")
             log(f"normal {list(shape)}: mean {m:.5f} std {s:.5f}")
-        n = z.numel()
+        if shape not in ((1, 32), AUG_NOISE_SHAPE, PRETEXT_NOISE_SHAPE):
+            _record(table, "normal", err=err)
+            continue
         dev = torch.device("cuda")
+        big = n > 1 << 20
         t = paired_ms({"kernel": lambda: reparam_mod.normal(shape, 11, dev),
-                       "randn": lambda: torch.randn(shape, device=dev)},
-                      100 if shape == AUG_NOISE_SHAPE else 1000)
+                       "randn": lambda: torch.randn(shape, device=dev)}, 100 if big else 1000)
         k_ms, l_ms = t["kernel"], t["randn"]
         # the launch alone into a tensor made beforehand: what is left of the
         # wrapper's time is its allocation and checks
         a_ms = time_ms(lambda: _ext.call("reparam", "vaeunet_normal", dev, z.data_ptr(), n, 11),
                        1000)
-        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"),
-                       10 if shape == AUG_NOISE_SHAPE else 200)
-        bnd, by = bound_ms(4 * n, PHILOX_BOX_MULLER_OPS * n)
+        p_ms = time_ms(lambda: reparam_mod.normal_plain(shape, 11, "cuda"), 10 if big else 200)
+        bnd, by = bound_ms(4 * n, NORMAL_OPS * n)
         log(f"normal {list(shape)}: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone "
             f"{a_ms:.4f} ms  plain {p_ms:.4f} ms  torch.randn {l_ms:.4f} ms  "
-            f"bound {bnd:.6f} ms  "
+            f"bound {bnd:.6f} ms ({by})  "
             f"(kernel {'no slower than' if k_ms <= l_ms else 'SLOWER than'} torch.randn)")
         main = shape == (1, 32)
         _record(table, "normal", err=err, **(dict(
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
             shape="[1, 32]") if main else {}))
-        if shape == AUG_NOISE_SHAPE:
-            _record(table, "normal", augmentation_shape=dict(
+        if not main:
+            key = "augmentation_shape" if shape == AUG_NOISE_SHAPE else "pretext_shape"
+            _record(table, "normal", **{key: dict(
                 shape=str(list(shape)), ms=k_ms, launch_alone_ms=a_ms, plain_ms=p_ms,
-                library_ms=l_ms, bound_ms=bnd, bound_by=by))
+                library_ms=l_ms, bound_ms=bnd, bound_by=by)})
 
 
 def kernel_reparam(table: dict) -> None:
@@ -587,8 +608,13 @@ def kernel_reparam(table: dict) -> None:
     check(torch.allclose(z2.std(0), torch.tensor([2.0, 4.0], device="cuda"), rtol=0.1),
           f"reparam T=2 std {z2.std(0).tolist()}")
     check(torch.equal(z, reparam_mod.reparameterize(mu, logvar, 7, 1.0)), "reparam: seed repeat")
+    # the fused kernel draws the noise kernel's stream: z = mu + eps * std
+    direct = mu + reparam_mod.normal(mu.shape, 7, "cuda") * (torch.exp(0.5 * logvar) * 2.0)
+    d_err = (z2 - direct).abs().max().item()
+    check(d_err <= 1e-5, f"reparam: {d_err} off mu + normal * std")
     check(not torch.equal(z, reparam_mod.reparameterize(mu, logvar, 8, 1.0)), "reparam: new seed")
-    log(f"reparam [4096, 2]: err {err:.3g}  mean {z.mean(0).tolist()}  std {z.std(0).tolist()}")
+    log(f"reparam [4096, 2]: err {err:.3g}  mean {z.mean(0).tolist()}  std {z.std(0).tolist()}"
+        f"  vs mu + normal * std {d_err:.3g}")
     # timed at the serving shape: N=10 draws of one image's [1, 32] posterior
     g = torch.Generator(device="cuda").manual_seed(3)
     mu = torch.randn((N_SAMPLES, 32), device="cuda", generator=g)
@@ -602,7 +628,7 @@ def kernel_reparam(table: dict) -> None:
     z = torch.empty_like(mu)
     a_ms = time_ms(lambda: _ext.call("reparam", "vaeunet_reparam", mu.device, mu.data_ptr(),
                                      logvar.data_ptr(), TEMPERATURE, z.data_ptr(), n, 5), 1000)
-    bnd, by = bound_ms(12 * n, (PHILOX_BOX_MULLER_OPS + 5) * n)
+    bnd, by = bound_ms(12 * n, (NORMAL_OPS + 5) * n)
     log(f"reparam [10, 32]: err {err:.3g}  kernel {k_ms:.4f} ms  launch alone {a_ms:.4f} ms  "
         f"plain {p_ms:.4f} ms  bound {bnd:.6f} ms")
     _record(table, "reparam", err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
@@ -625,31 +651,13 @@ CONV_MAIN = ((16, 224, 256, 256), 64)
 
 
 def conv_launch_only(x, w):
-    """The kernel's launch alone, its operands made beforehand (bf16: x
-    padded to a multiple of 8 channels, as the wrapper pads it): the device
-    time where the wrapper's host work would hide it."""
-    b, ci, h, wd = x.shape
-    co = w.shape[0]
-    if x.dtype == torch.bfloat16:
-        ci_k = -(-ci // conv_mod.CI_ALIGN) * conv_mod.CI_ALIGN
-        if ci_k != ci:
-            x = conv_mod.pad_channels(x, ci_k)
-        wk, dims = conv_mod.weights_k_major(w, ci_k), (ci_k, co)
-        fn = "vaeunet_conv3x3_stats_bf16_wgmma"
-    else:
-        pads = (-(-ci // conv_mod.F32_CI_ALIGN) * conv_mod.F32_CI_ALIGN,
-                -(-co // conv_mod.F32_CO_ALIGN) * conv_mod.F32_CO_ALIGN)
-        wk, dims = conv_mod.weights_tap_major(w, *pads), (ci, co, *pads)
-        fn = "vaeunet_conv3x3_stats_f32"
-    y = torch.empty((b, co, h, wd), dtype=x.dtype, device=x.device,
-                    memory_format=torch.channels_last)
-    tiles = conv_mod.scratch_rows(b, h, wd)
-    buf = torch.empty(2 * (tiles + 1) * co, device=x.device)
-    p = buf.data_ptr()
-    args = (x.data_ptr(), wk.data_ptr(), y.data_ptr(), p + 8 * co, p + 8 * co + 4 * tiles * co,
-            p, p + 4 * co, b, h, wd, *dims, tiles)
+    """The kernel's launch alone, its operands prepared beforehand as the
+    wrapper prepares them (``launch_args``: the route's weights, and for the
+    wgmma kernel x padded to a multiple of 8 channels): the device time
+    where the wrapper's host work would hide it."""
+    fn, args, _, keep = conv_mod.launch_args(x, w)
 
-    def launch(keep=(x, wk, y, buf)):   # the operands live as long as the launcher
+    def launch(keep=keep):   # the operands live as long as the launcher
         _ext.call("conv_bn_stats", fn, x.device, *args)
     return launch
 
@@ -772,12 +780,59 @@ def kernel_conv_bn_stats(table: dict) -> None:
     kernel_conv_new_shapes(table, g, bf16)
 
 
+# the plain UNet's first conv, the Ci <= 8 route's shape on the paths
+CONV_SMALL_CI = ((16, 3, 512, 512), 64)
+# the route at every Ci class of its K padding, on ragged H and W and B = 1
+CONV_SMALL_CI_CHECKS = tuple(((1, ci, 37, 133), 64) for ci in (1, 3, 4, 8))
+
+
+def kernel_conv_small_ci(table: dict, g) -> dict:
+    """The bf16 Ci <= 8 route against the plain version (conv_case's bf16
+    tolerances) at Ci 1, 3, 4, 8 on a ragged shape, then at the UNet's
+    [16,3,512,512]->64, timed through the wrapper and alone beside
+    F.conv2d + 2 sums; and the fp32 kernel timed at the same shape beside
+    fp32 F.conv2d + 2 sums.  -> the bf16 timings."""
+    for shape, co in CONV_SMALL_CI_CHECKS:
+        check(conv_mod.route(shape[1], co, torch.bfloat16) == conv_mod.SMALL_CI_ENTRY,
+              f"{list(shape)}->{co} bf16 does not take the Ci <= 8 route")
+        _record(table, "conv_bn_stats_ci8",
+                err=conv_case(g, shape, co, torch.bfloat16, timed=False)["err"])
+    shape, co = CONV_SMALL_CI
+    r = conv_case(g, shape, co, torch.bfloat16, launch_alone=True)
+    # the wgmma kernel this route replaces at Ci <= 8, launched alone on its
+    # prepared operands (x padded to 8 channels beforehand)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((co, shape[1], 3, 3), device="cuda", generator=g).to(torch.bfloat16)
+    fn, args, _, keep = conv_mod.launch_args(x, w, conv_mod.WGMMA_ENTRY)
+    r["replaced_ms"] = time_auto(lambda: _ext.call("conv_bn_stats", fn, x.device, *args))
+    log(f"conv_bn_stats {list(shape)}->{co} bf16: the wgmma kernel it replaces there, launch "
+        f"alone {r['replaced_ms']:.4f} ms (x padded beforehand); the Ci <= 8 kernel "
+        f"{r['launch_ms']:.4f} ms")
+    del x, w, args, keep
+    _record(table, "conv_bn_stats_ci8", err=r["err"], ms=r["ms"], launch_ms=r["launch_ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], shape=f"{list(shape)}->{co} bf16",
+            replaced_wgmma_ms=r["replaced_ms"])
+    r32 = conv_case(g, shape, co, torch.float32, launch_alone=True)
+    _record(table, "conv_bn_stats_fp32", err=r32["err"], small_ci_shape=dict(
+        shape=f"{list(shape)}->{co} fp32", ms=r32["ms"], launch_ms=r32["launch_ms"],
+        plain_ms=r32["plain_ms"], library_ms=r32["library_ms"], bound_ms=r32["bound_ms"],
+        bound_by=r32["bound_by"]))
+    log(f"conv_bn_stats fp32 at the UNet's Ci = 3: launch alone {r32['launch_ms']:.4f} ms "
+        f"against fp32 F.conv2d+sums {r32['library_ms']:.4f} ms ("
+        f"{'no slower' if r32['launch_ms'] <= r32['library_ms'] else 'SLOWER'})")
+    torch.cuda.empty_cache()
+    return r
+
+
 def kernel_conv_new_shapes(table: dict, g, bf16: dict) -> None:
     """The shapes of the plain UNet's and the resnet50 VAE-UNet's steps
     that the resnet34 step does not have (Ci = 3 at 512^2, the ragged
     K chunks of Ci = 3104, 1056, 544, ...): both types held against the
     plain version, the bf16 launches timed beside F.conv2d + 2 sums, and
     each path's sum of launches x ms against its bound."""
+    bf16[CONV_SMALL_CI] = kernel_conv_small_ci(table, g)
     new = sorted({c for _, convs in NEW_PATHS for c in convs} - set(bf16),
                  key=lambda c: (c[0][1], c[0][2], c[1]))
     for shape, co in new:
@@ -1076,8 +1131,7 @@ def phase_train() -> dict:
           and bool(torch.isfinite(logits).all()), "eval logits")
     for k, v in metrics.items():
         check(0.0 <= v.item() <= 1.0, f"eval metric {k} = {v.item()}")
-    expected_eval = {"bn_relu": 17 + 13, "resize": 5, "resize_row": 1, "normal": 1, "reparam": 0,
-                     "resize_bwd": 0, "conv_bn_stats": 0, "conv_bn_stats_fp32": 0}
+    expected_eval = launches(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
     log(f"eval step: {({k: round(v.item(), 5) for k, v in metrics.items()})}  launches {ecounts}")
     check(ecounts == expected_eval, f"eval launch counts {ecounts} differ from {expected_eval}")
     del state, step, eval_step, images, masks, logits
@@ -1286,7 +1340,8 @@ def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
 
 def phase_unet_train() -> list:
     """The bench.py step settings on the plain UNet, both ``bilinear``
-    settings: 18 conv-kernel launches a step, and with ``bilinear`` 4
+    settings: 18 conv-kernel launches a step (the first, Ci = 3, on the
+    Ci <= 8 route, the other 17 on the wgmma kernel), and with ``bilinear`` 4
     resizes forward and 4 backward; one eval step (18 ``bn_relu``); then one
     fp32 step card vs CPU at 128^2."""
     out = []
@@ -1295,7 +1350,8 @@ def phase_unet_train() -> list:
         label = f"UNet bilinear={bilinear}"
         up = 4 if bilinear else 0
         state, counts, images, masks = train_path(
-            config, label, dict(conv_bn_stats=18, resize=up, resize_bwd=up))
+            config, label, dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=up,
+                                resize_bwd=up))
         out.append(counts)
         _ext.reset_launch_counts()
         metrics, logits = make_eval_step(config, state.model)(images, masks)
@@ -2058,6 +2114,25 @@ def rank_parallel(ctx) -> dict:
     del state, step, grads, whole, params
     torch.cuda.empty_cache()
 
+    # the plain UNet's: its wide convs column-parallel, up1-3's transposed
+    # convs row-parallel
+    config_u = train_config(amp=False, model_type="basic", bilinear=False)
+    state = create_train_state(config_u, seed=0, device=ctx.device)
+    names = shard_state(state, config_u, tp_ctx, TP_MIN_CHANNELS)
+    step = make_train_step(config_u, state.model)
+
+    def unet_tp_gradient():
+        aux = step.compute_gradients(state, images[tb], masks[tb], 0.001)
+        return aux, {n: (collectives.gather(p.grad, 0, tp_ctx.model) if n in names
+                         else p.grad.clone()) for n, p in state.model.named_parameters()}
+
+    (aux, grads), out["unet_tp_counts"], _ = counted(unet_tp_gradient)
+    out.update(unet_tp_loss=aux["loss"].item(), unet_tp_sharded=names)
+    if keep:
+        out["unet_tp_grads"] = on_host(grads)
+    del state, step, grads
+    torch.cuda.empty_cache()
+
     model = build_model(backbone="resnet34", latent_dim=32, latent_injection="all", seed=0,
                         device=ctx.device)
     randomize_bn_stats(model, seed=1)
@@ -2070,6 +2145,31 @@ def rank_parallel(ctx) -> dict:
     if keep:
         out["ensemble"], out["tiled"] = ens.cpu(), tiled.cpu()
     return out
+
+
+class HandSplitConvTranspose2x(ConvTranspose2x):
+    """``ConvTranspose2x`` with its input channels in two halves whose
+    outputs are added, then the bias: the two row-parallel ranks'
+    arithmetic (their all-reduce is one commutative addition) in one
+    process, the reference of the UNet's TP gradient."""
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        half = w.shape[0] // 2
+        cl = torch.channels_last
+        y0, y1 = (F.conv_transpose2d(x[:, i * half:(i + 1) * half].contiguous(memory_format=cl),
+                                     w[i * half:(i + 1) * half], None, stride=2
+                                     ).contiguous(memory_format=cl) for i in range(2))
+        return (y0 + y1) + self.bias.to(x.dtype).view(1, -1, 1, 1)
+
+
+def hand_split(model: torch.nn.Module, sharded) -> None:
+    """The sharded transposed convs of `model` as HandSplitConvTranspose2x."""
+    modules = dict(model.named_modules())
+    for name in sharded:
+        mod = modules[name.rpartition(".")[0]]
+        if type(mod) is ConvTranspose2x:
+            mod.__class__ = HandSplitConvTranspose2x
 
 
 def inference_inputs(device) -> tuple:
@@ -2169,8 +2269,8 @@ def phase_parallel() -> dict:
     log(f"(b) two ranks over {r0['backend']} ({'sharing the card' if share else 'a card each'})"
         f": {time.perf_counter() - t0:.1f} s in all  [{smi}]")
     for r in ranks:
-        for key in ("dp_counts", "explicit_counts", "tp_counts", "ensemble_counts",
-                    "tiled_counts"):
+        for key in ("dp_counts", "explicit_counts", "tp_counts", "unet_tp_counts",
+                    "ensemble_counts", "tiled_counts"):
             total = {k: total[k] + r[key][k] for k in total}
     config = train_config(amp=False)
     lr = config.learning_rate
@@ -2249,6 +2349,38 @@ def phase_parallel() -> dict:
     held_to_harness("(b) TP step vs the unsharded step", r0["tp_state"], host_state(state.model),
                     lr)
     del state, step
+    torch.cuda.empty_cache()
+
+    # the plain UNet's TP gradient = the unsharded model's whose transposed
+    # convs sum their input-channel halves as the ranks do (the same
+    # function; against the unsharded sum order the training-mode gradient
+    # moves as much as under any reordered sum: logged beside it)
+    config_u = train_config(amp=False, model_type="basic", bilinear=False)
+    sharded = r0["unet_tp_sharded"]
+    check({"up1.up.weight", "up2.up.weight", "up3.up.weight"} <= set(sharded),
+          f"the UNet's TP step did not shard up1-3's transposed convs: {sharded}")
+    refs = {}
+    for split in (True, False):
+        state = create_train_state(config_u, seed=0, device="cuda")
+        if split:
+            hand_split(state.model, sharded)
+        aux = make_train_step(config_u, state.model).compute_gradients(
+            state, images[tb], masks[tb], 0.001)
+        refs[split] = (aux["loss"].item(), on_host(device_grads(state.model)))
+        del state
+    log(f"(b) UNet TP step ({len(sharded)} weights sharded, up1-3.up row-parallel), fp32 "
+        f"b{TP_BATCH}: loss {r0['unet_tp_loss']:.7f} vs {refs[True][0]:.7f} (hand split) / "
+        f"{refs[False][0]:.7f} (unsharded); gradient vs the unsharded sum order, relative L2 "
+        f"{rel_l2(r0['unet_tp_grads'], refs[False][1]):.3g}")
+    check(abs(r0["unet_tp_loss"] - refs[False][0]) <= 1e-5 + 2e-6 * abs(refs[False][0]),
+          "the UNet TP step's loss differs from the unsharded step's")
+    grads_held("(b) UNet TP step vs its hand split", r0["unet_tp_grads"], refs[True][1],
+               SPLIT_GRAD_LIMIT, head="outc.conv")
+    unet_fed = launches(1, conv_bn_stats=18, conv_bn_stats_fp32=18)
+    for r in ranks:
+        check(r["unet_tp_counts"] == unet_fed, f"rank {r['rank']}: UNet TP step launches "
+              f"{r['unet_tp_counts']} differ from the code's {unet_fed}")
+    del refs
     torch.cuda.empty_cache()
 
     # the sample-parallel ensemble and the tile-sharded prediction
@@ -2382,8 +2514,11 @@ KERNELS = (
      "vaeunet_tpu/ops/pallas/resize_mm.py:125-151"),
     ("conv_bn_stats", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
      "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
-    # the fp32 kernel of the same wrapper, and the one-channel kernel of the resize's
+    # the fp32 and the bf16 Ci <= 8 kernels of the same wrapper, and the
+    # one-channel kernel of the resize's
     ("conv_bn_stats_fp32", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
+     "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
+    ("conv_bn_stats_ci8", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
      "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
     ("resize_c1", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),
 )
@@ -2439,8 +2574,9 @@ def main() -> None:
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"], "shape": rec["shape"],
-                        **({"augmentation_shape": rec["augmentation_shape"]}
-                           if "augmentation_shape" in rec else {}),
+                        **{k: rec[k] for k in ("augmentation_shape", "pretext_shape",
+                                               "small_ci_shape", "launch_ms",
+                                               "replaced_wgmma_ms") if k in rec},
                         **({"wrapper_ms": rec["wrapper_ms"]} if "wrapper_ms" in rec else {})})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

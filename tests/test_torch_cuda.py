@@ -72,6 +72,33 @@ def test_noise_kernels_match_plain(cuda):
                                atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("shape", [(8192, 64), (3, 32), (1, 32), (7, 5), (1, 33),
+                                   (16, 512, 512, 3)])
+def test_noise_kernel_matches_plain_at_every_count(cuda, shape):
+    """One Philox call per 4 elements, the last one masked where the count
+    is not a multiple of 4: the plain stream within 1e-5 (the ulps of log,
+    sin and cos); a repeat gives the same bits, a new seed others, and a
+    draw is the prefix of a longer one."""
+    z = reparam.normal(shape, 11, cuda)
+    torch.testing.assert_close(z, reparam.normal_plain(shape, 11, cuda), atol=1e-5, rtol=0)
+    assert torch.equal(z, reparam.normal(shape, 11, cuda))
+    assert not torch.equal(z, reparam.normal(shape, 12, cuda))
+    n = z.numel()
+    assert torch.equal(z.flatten(), reparam.normal((n + 5,), 11, cuda)[:n])
+
+
+@pytest.mark.parametrize("shape", [(10, 32), (3, 5)])
+def test_reparameterize_is_mu_plus_the_noise_times_std_on_the_card(cuda, shape):
+    """The fused kernel draws the noise kernel's stream: z = mu + normal x
+    exp(logvar / 2) x T, within 1e-5 (the ulps of exp)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    mu = torch.randn(shape, device=cuda, generator=g)
+    logvar = torch.randn(shape, device=cuda, generator=g)
+    z = reparam.reparameterize(mu, logvar, 5, 1.5)
+    eps = reparam.normal(shape, 5, cuda)
+    torch.testing.assert_close(z, mu + eps * (torch.exp(0.5 * logvar) * 1.5), atol=1e-5, rtol=0)
+
+
 def test_slice_on_the_card_matches_the_cpu(cuda):
     model = build_model(backbone="resnet18", seed=0, device=cuda)
     img = torch.rand((96, 80, 3), generator=torch.Generator().manual_seed(2))
@@ -104,9 +131,11 @@ def _check_conv(cuda, shape, co, dtype):
     fp32 values can round to neighbours (the tensor cores sum in another
     order than the fp32 reference)."""
     x, w = _conv_case(cuda, shape, co, dtype)
-    before = _ext.launch_counts()["conv_bn_stats"]
+    counter = ("conv_bn_stats_ci8" if conv_bn_stats.route(shape[1], co, dtype)
+               == conv_bn_stats.SMALL_CI_ENTRY else "conv_bn_stats")
+    before = _ext.launch_counts()[counter]
     y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w)
-    assert _ext.launch_counts()["conv_bn_stats"] == before + 1
+    assert _ext.launch_counts()[counter] == before + 1
     ry, rs, rq = conv_bn_stats.conv3x3_bn_stats_plain(x, w)
     mag = F.conv2d(x.float().abs(), w.float().abs(), padding=1)
     torch.cuda.synchronize()
@@ -144,6 +173,30 @@ def test_conv_bn_stats_kernel_matches_plain(cuda, shape, co, dtype):
     ((1, 224, 31, 7), 64)])
 def test_conv_bn_stats_tensor_core_kernel_matches_plain(cuda, shape, co):
     _check_conv(cuda, shape, co, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,co", [
+    ((1, 1, 13, 70), 64),       # Ci = 1: one K step; W one tile and a ragged one
+    ((2, 3, 9, 67), 64),        # the plain UNet's Ci = 3: K 27 -> 32; H, W off the 4 x 64 tile
+    ((1, 4, 5, 129), 64),       # K 36 -> 48
+    ((2, 8, 17, 3), 64),        # K 72 -> 80; W under one tile
+    ((1, 3, 6, 20), 72),        # two channel blocks, the second of 8
+    ((1, 5, 64, 64), 16)])      # whole tiles; Co under one block
+def test_conv_bn_stats_small_ci_kernel_matches_plain(cuda, shape, co):
+    assert conv_bn_stats.route(shape[1], co, torch.bfloat16) == conv_bn_stats.SMALL_CI_ENTRY
+    _check_conv(cuda, shape, co, torch.bfloat16)
+
+
+def test_conv_bn_stats_small_ci_kernel_refuses_a_co_off_8(cuda):
+    """The C entry refuses a Co that is not a multiple of 8 instead of
+    writing past the pixel's channels; the wrapper never sends one."""
+    x, w = _conv_case(cuda, (1, 3, 8, 8), 8, torch.bfloat16)
+    fn, args, _, keep = conv_bn_stats.launch_args(x, w)
+    assert fn == conv_bn_stats.SMALL_CI_ENTRY
+    bad = list(args)
+    bad[11] = 7                                   # Co
+    with pytest.raises(RuntimeError, match="failed with CUDA error"):
+        _ext.call("conv_bn_stats", fn, cuda, *bad)
 
 
 @pytest.mark.parametrize("shape,co", [

@@ -34,7 +34,7 @@ def cl(t: torch.Tensor) -> torch.Tensor:
 
 
 # the new paths' channel counts at a small batch and size: Ci = 3 (bf16
-# pads it to 8, fp32 copies 4 bytes at a time), the ragged K chunks of the
+# takes the Ci <= 8 kernel, fp32 copies 4 bytes at a time), the ragged K chunks of the
 # resnet50 decoder (3104, 1056, 544), the UNet's 1024-wide bottom
 NEW_CONVS = [((2, 3, 64, 64), 64), ((2, 3104, 8, 8), 512), ((2, 1056, 16, 16), 256),
              ((2, 544, 32, 32), 128), ((2, 512, 8, 8), 1024), ((2, 1024, 8, 8), 1024),
@@ -50,9 +50,11 @@ def test_conv_kernel_matches_plain_at_the_new_shapes(cuda, shape, co, dtype):
     x = cl(torch.randn(shape, device=cuda, generator=g).to(dtype))
     w = (torch.randn((co, shape[1], 3, 3), device=cuda, generator=g)
          / (3.0 * shape[1] ** 0.5)).to(dtype)
-    before = _ext.launch_counts()["conv_bn_stats"]
+    counter = ("conv_bn_stats_ci8" if conv_bn_stats.route(shape[1], co, dtype)
+               == conv_bn_stats.SMALL_CI_ENTRY else "conv_bn_stats")
+    before = _ext.launch_counts()[counter]
     y, s, q = conv_bn_stats.conv3x3_bn_stats(x, w)
-    assert _ext.launch_counts()["conv_bn_stats"] == before + 1
+    assert _ext.launch_counts()[counter] == before + 1
     ry, rs, rq = conv_bn_stats.conv3x3_bn_stats_plain(x, w)
     mag = torch.nn.functional.conv2d(x.float().abs(), w.float().abs(), padding=1)
     room = 1e-5 * mag
@@ -155,8 +157,9 @@ def test_gradient_through_a_checkpointed_block_with_kernels(cuda, policy, dtype)
 
 
 @pytest.mark.parametrize("kind,per_step", [
-    ("unet", dict(conv_bn_stats=18, resize=0, resize_bwd=0, normal=0)),
-    ("unet_bilinear", dict(conv_bn_stats=18, resize=4, resize_bwd=4, normal=0)),
+    ("unet", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=0, resize_bwd=0, normal=0)),
+    ("unet_bilinear", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=4, resize_bwd=4,
+                           normal=0)),
     ("resnet50_ds", dict(conv_bn_stats=21, resize=8, resize_row=4, resize_bwd=5, normal=1)),
 ])
 def test_steps_launch_the_counted_kernels(cuda, kind, per_step):

@@ -28,8 +28,8 @@ from vaeunet_tpu.parallel.tp import param_pspec as jax_param_pspec
 
 from vaeunet_tpu_torch.compat.jax_weights import convert_jax_unet_resnet
 from vaeunet_tpu_torch.models import build_model
-from vaeunet_tpu_torch.parallel import ParallelContext, launch
-from vaeunet_tpu_torch.parallel.tp import param_shardings, shard_params
+from vaeunet_tpu_torch.parallel import launch
+from vaeunet_tpu_torch.parallel.tp import param_shardings
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
 from tests import torch_dist_workers as workers
 
@@ -77,15 +77,6 @@ def test_param_pspec_matches_jax(min_channels):
     assert port_sharded == jax_sharded
     assert jax_sharded, "no parameter is sharded"
     assert all(dim in (None, 0) for dim in choice.values())
-
-
-def test_shard_params_refuses_save_convs():
-    model = build_model(backbone="resnet18", use_remat=True, remat_policy="save_convs",
-                        device="cpu")
-    ctx = ParallelContext(rank=0, world_size=2, n_data=1, n_model=2, data=None, model=None,
-                          device=torch.device("cpu"), backend="gloo")
-    with pytest.raises(ValueError, match="save_convs"):
-        shard_params(model, ctx)
 
 
 @pytest.fixture(scope="module")

@@ -196,7 +196,28 @@ def tp_steps(ctx, cfg_kwargs: dict, sd: dict, images: np.ndarray, masks: np.ndar
     algorithms on a card, so that the model ranks' replicated work agrees
     bit for bit)."""
     torch.backends.cudnn.deterministic = True
-    out: Dict[str, Any] = {"rank": ctx.rank}
+    return {"rank": ctx.rank, **_tp_run(ctx, cfg_kwargs, sd, images, masks, eps, beta,
+                                       min_channels, dict(sample=False))}
+
+
+def tp_unet_and_save_convs(ctx, unet_kwargs: dict, unet_sd: dict, remat_kwargs: dict,
+                           remat_sd: dict, images: np.ndarray, masks: np.ndarray,
+                           eps: np.ndarray, beta: float, min_unet: int,
+                           min_remat: int) -> Dict[str, Any]:
+    """What :func:`tp_steps` returns, for the plain UNet (its transposed
+    convs row-parallel; no latent, so no noise) under "unet", and for a
+    VAE-UNet with remat 'save_convs' under "remat"."""
+    torch.backends.cudnn.deterministic = True
+    return {"rank": ctx.rank,
+            "unet": _tp_run(ctx, unet_kwargs, unet_sd, images, masks, None, beta, min_unet, {}),
+            "remat": _tp_run(ctx, remat_kwargs, remat_sd, images, masks, eps, beta, min_remat,
+                             dict(sample=False))}
+
+
+def _tp_run(ctx, cfg_kwargs: dict, sd: dict, images: np.ndarray, masks: np.ndarray, eps,
+            beta: float, min_channels: int, eval_kwargs: dict) -> Dict[str, Any]:
+    eps = None if eps is None else torch.from_numpy(eps)
+    out: Dict[str, Any] = {}
     config, state = _state(cfg_kwargs, sd, ctx.device)
     model = state.model
     names = shard_state(state, config, ctx, min_channels)
@@ -206,9 +227,10 @@ def tp_steps(ctx, cfg_kwargs: dict, sd: dict, images: np.ndarray, masks: np.ndar
     with torch.no_grad():
         x = torch.from_numpy(images).to(ctx.device).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        out["eval_logits"] = _host(model(x, sample=False)[0])
+        logits = model(x, **eval_kwargs)
+        out["eval_logits"] = _host(logits[0] if isinstance(logits, tuple) else logits)
     step = make_train_step(config, model)
-    step.compute_gradients(state, images, masks, beta, eps=torch.from_numpy(eps))
+    step.compute_gradients(state, images, masks, beta, eps=eps)
     grads = {n: (collectives.gather(p.grad, 0, ctx.model) if n in names else p.grad)
              for n, p in model.named_parameters()}
     out["grads"] = _host(grads)
@@ -218,8 +240,7 @@ def tp_steps(ctx, cfg_kwargs: dict, sd: dict, images: np.ndarray, masks: np.ndar
     config, state = _state(cfg_kwargs, sd, ctx.device)
     model = state.model
     shard_state(state, config, ctx, min_channels)
-    state, aux = make_train_step(config, model)(state, images, masks, beta,
-                                                eps=torch.from_numpy(eps))
+    state, aux = make_train_step(config, model)(state, images, masks, beta, eps=eps)
     params = dict(model.named_parameters())
     full = {k: (collectives.gather(params[k].detach(), 0, ctx.model) if k in names else v)
             for k, v in model.state_dict().items()}

@@ -10,9 +10,10 @@
 // across the grid: each block writes its partial moments to a row of a
 // [n_tiles, Co] scratch, and a second kernel (reduce_partials_kernel)
 // reduces the rows of each channel in a fixed order.  The moments are
-// therefore deterministic and need no atomics.  Both kernels below cover an
-// output tile of kTH x kTW = 8 x 16 pixels of one image per block, so the
-// scratch has one row per such tile whichever kernel runs.
+// therefore deterministic and need no atomics.  The fp32 and the wgmma
+// kernels cover an output tile of kTH x kTW = 8 x 16 pixels of one image per
+// block, the Ci <= 8 kernel one of kSTH x kSTW = 4 x 64; the scratch has one
+// row per tile of the kernel that runs.
 //
 // Pixels outside H x W and channels beyond Co are masked on the way out, so
 // the moments cover only the valid output; that replaces the TPU wrapper's
@@ -40,6 +41,27 @@
 // epilogue stores y as bf16 from the fp32 accumulators and reduces each
 // column's moments over the thread's rows, then a fixed __shfl_xor tree,
 // then the 8 warps in order through shared memory.
+//
+// bf16 with Ci <= 8 (the plain UNet's first conv, Ci = 3):
+// conv3x3_stats_ci8_kernel.  There the wgmma kernel would load a 64-channel
+// box for 8 real channels (x zero-padded to 8 by a copy first), multiply
+// 61 zero channels of 64 and pay its per-tile cost (TMA round trip, barrier
+// ring, epilogue) on 8 x 16 pixels of little work; its bound is the y write
+// (B*H*W*Co*2 bytes: 0.16 ms at [16,3,512,512]->64), not the operations.
+// So a block owns a 4 x 64 pixel tile and 64 output channels, loads the
+// (4+2) x (64+2) halo of the Ci real channels once into shared memory (zero
+// outside x: the padding), and multiplies the implicit im2col [256 pixels,
+// K] by the weights [K, 64] with mma.sync m16n8k16 on the tensor cores,
+// K = 9 * Ci in the order tap * Ci + c (tap = ky * 3 + kx), padded with zero
+// weights to a multiple of 16 (Ci = 3: 27 -> 32, two K steps).  Each warp
+// owns 32 pixels of one tile row, gathers its A fragments from the halo and
+// reads its B fragments from the staged weights.  y leaves through shared
+// memory as 16-byte stores, a warp writing whole 128-byte pixels of 64
+// channels side by side; the moments are taken from the fp32 accumulators
+// before rounding, summed over the 8 lanes of a column in a fixed butterfly
+// and the 8 warps in order into the tile's scratch row.  Ci is a template
+// parameter (1 .. 8), so the K map is compile-time; Co must be a multiple
+// of 8 (the C entry refuses any other).
 //
 // fp32: conv3x3_stats_f32_kernel, a register-tiled SIMT kernel with true fp32
 // products and sums (FMA; no TF32, no tensor cores: this route is what holds
@@ -74,9 +96,11 @@
 // Weights: fp32 [9][ci_pad][co_pad] with tap = ky * 3 + kx, Co fastest, zero
 // beyond Ci and Co (ci_pad a multiple of the chunk, co_pad of the block's 64
 // channels, so the weight copies need no guard); bf16 K-major [9][Co][Ci]
-// with tap = kx * 3 + ky and Ci a multiple of 8 (TMA needs 16-byte strides).
-// The wrapper makes both from PyTorch's OIHW, and zero-pads the channels of
-// a bf16 x where Ci is not a multiple of 8.
+// with tap = kx * 3 + ky and Ci a multiple of 8 (TMA needs 16-byte strides);
+// bf16 with Ci <= 8: [Co][K padded to 16], k = (ky * 3 + kx) * Ci + c, zero
+// past 9 * Ci.  The wrapper makes all three from PyTorch's OIHW, and
+// zero-pads the channels of a bf16 x for the wgmma kernel where Ci (> 8) is
+// not a multiple of 8.
 //
 // The TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library needs no -lcuda.
@@ -665,6 +689,236 @@ conv3x3_stats_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// ----- bf16, Ci <= 8: implicit im2col on mma.sync ---------------------------
+
+constexpr int kSTH = 4;                          // output rows per tile
+constexpr int kSTW = 64;                         // output columns per tile
+constexpr int kSThreads = 256;                   // warp w: tile row w / 2, columns (w % 2) * 32 ..
+constexpr int kSBN = 64;                         // output channels per block
+constexpr int kSOutPitch = kSBN * 2 + 16;        // bytes of a staged output pixel (+4 banks)
+
+template <int CI>
+struct SmallCi {
+  static_assert(CI >= 1 && CI <= 8, "the route takes 1 .. 8 input channels");
+  static constexpr int kK = 9 * CI;                        // taps x channels
+  static constexpr int kKP = (kK + 15) / 16 * 16;          // padded to whole K steps
+  static constexpr int kSteps = kKP / 16;
+  static constexpr int kHaloRow = (kSTW + 2) * CI;         // bf16 a halo row
+  static constexpr int kHalo = (kSTH + 2) * kHaloRow;
+  static constexpr int kHaloBytes = (kHalo * 2 + 15) / 16 * 16;
+  static constexpr int kRowWords = kKP / 2;                // 32-bit words of a weight row
+  static constexpr int kPitchWords = kRowWords + 4;        // +4 banks: conflict-free B loads
+  static constexpr int kWBytes = kSBN * kPitchWords * 4;
+  static constexpr int kStageBytes = 16 * kSOutPitch;      // one warp's m16 tile of y
+  static constexpr int kSmem = kHaloBytes + kWBytes + 8 * kStageBytes + 2 * 8 * kSBN * 4;
+  static_assert(kSmem <= 48 * 1024, "static shared memory limit");
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block = one 4 x 64 pixel tile of one image (blockIdx.x) x 64 output
+// channels (blockIdx.y).  Fragments of mma m16n8k16 (lane l, g = l / 4,
+// tg = l % 4): A rows g and g + 8 (pixels), columns 2tg, 2tg + 1 and
+// 8 + 2tg, 9 + 2tg (K); B column g (output channel), rows 2tg, 2tg + 1 and
+// 8 + 2tg, 9 + 2tg; D rows g and g + 8, columns 2tg and 2tg + 1.
+template <int CI>
+__global__ void __launch_bounds__(kSThreads)
+conv3x3_stats_ci8_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
+                         __nv_bfloat16* __restrict__ y, float* __restrict__ part_s,
+                         float* __restrict__ part_q, int H, int W, int Co, int tiles_h,
+                         int tiles_w) {
+  using C = SmallCi<CI>;
+  __shared__ __align__(16) uint8_t smem_ci8[C::kSmem];
+  uint16_t* halo = reinterpret_cast<uint16_t*>(smem_ci8);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem_ci8 + C::kHaloBytes);
+  uint8_t* stage = smem_ci8 + C::kHaloBytes + C::kWBytes;
+  float* red_s = reinterpret_cast<float*>(stage + 8 * C::kStageBytes);
+  float* red_q = red_s + 8 * kSBN;
+
+  const int tile = blockIdx.x;
+  const int tw_i = tile % tiles_w;
+  const int th_i = (tile / tiles_w) % tiles_h;
+  const int b = tile / (tiles_w * tiles_h);
+  const int h0 = th_i * kSTH;
+  const int w0 = tw_i * kSTW;
+  const int co0 = blockIdx.y * kSBN;
+  const int t = threadIdx.x;
+  const int warp = t / 32;
+  const int lane = t % 32;
+
+  // the halo: rows h0 - 1 .. h0 + kSTH, columns w0 - 1 .. w0 + kSTW, each row
+  // one contiguous run of x; zero outside x
+  const uint16_t* xb = x + static_cast<int64_t>(b) * H * W * CI;
+  for (int i = t; i < C::kHalo; i += kSThreads) {
+    const int r = i / C::kHaloRow;
+    const int e = i - r * C::kHaloRow;
+    const int hh = h0 - 1 + r;
+    const int ww = w0 - 1 + e / CI;
+    uint16_t v = 0;
+    if (hh >= 0 && hh < H && ww >= 0 && ww < W)
+      v = xb[(static_cast<int64_t>(hh) * W + w0 - 1) * CI + e];
+    halo[i] = v;
+  }
+  // the block's 64 weight rows (zero past Co)
+  for (int i = t; i < kSBN * C::kRowWords; i += kSThreads) {
+    const int n = i / C::kRowWords;
+    const int kw = i - n * C::kRowWords;
+    ws[n * C::kPitchWords + kw] =
+        co0 + n < Co ? w[static_cast<int64_t>(co0 + n) * C::kRowWords + kw] : 0u;
+  }
+  __syncthreads();
+
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int row = warp >> 1;                 // tile row of the warp
+  const int colw = (warp & 1) * 32;          // its first tile column
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < C::kSteps; ++s) {
+    // this lane's four K indices of the step and their halo offsets
+    int off[4];
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = s * 16 + (j >> 1) * 8 + 2 * tg + (j & 1);
+      const int tap = k / CI;
+      const int c = k - tap * CI;
+      const int ky = tap / 3;
+      ok[j] = k < C::kK;
+      off[j] = ky * C::kHaloRow + (tap - 3 * ky) * CI + c;
+    }
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const uint16_t* px = halo + row * C::kHaloRow + (colw + 16 * m + g + 8 * hr) * CI;
+        uint32_t e[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e[j] = ok[j] ? px[off[j]] : 0u;
+        a[m][hr] = e[0] | (e[1] << 16);          // K 2tg, 2tg + 1
+        a[m][2 + hr] = e[2] | (e[3] << 16);      // K 8 + 2tg, 9 + 2tg
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t* wr = ws + (8 * j + g) * C::kPitchWords + 8 * s + tg;
+      const uint32_t b0 = wr[0];
+      const uint32_t b1 = wr[4];
+      mma_bf16_16816(acc[0][j], a[0], b0, b1);
+      mma_bf16_16816(acc[1][j], a[1], b0, b1);
+    }
+  }
+
+  // epilogue: the moments of valid pixels from the fp32 accumulators
+  const int hh = h0 + row;
+  float ls[8][2];
+  float lq[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ls[j][e] = 0.0f;
+      lq[j][e] = 0.0f;
+    }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int col = w0 + colw + 16 * m + g + 8 * hr;
+      if (hh < H && col < W) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[m][j][2 * hr + e];
+            ls[j][e] += v;
+            lq[j][e] += v * v;
+          }
+      }
+    }
+  // the 8 lanes of a column, in a fixed butterfly
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int msk = 4; msk < 32; msk <<= 1) {
+        ls[j][e] += __shfl_xor_sync(0xffffffffu, ls[j][e], msk);
+        lq[j][e] += __shfl_xor_sync(0xffffffffu, lq[j][e], msk);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red_s[warp * kSBN + 8 * j + 2 * tg + e] = ls[j][e];
+        red_q[warp * kSBN + 8 * j + 2 * tg + e] = lq[j][e];
+      }
+  }
+  // y, one m16 tile at a time through the warp's stage: bf16 pairs in, then
+  // 16 bytes a lane out, 8 lanes a pixel (its 64 channels, 128 bytes)
+  uint8_t* st = stage + warp * C::kStageBytes;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<__nv_bfloat162*>(st + (g + 8 * hr) * kSOutPitch + (8 * j + 2 * tg) * 2) =
+            __floats2bfloat162_rn(acc[m][j][2 * hr], acc[m][j][2 * hr + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int p = it * 4 + lane / 8;          // pixel of the m16 tile
+      const int ch = lane % 8;                  // its 8-channel chunk
+      const int col = w0 + colw + 16 * m + p;
+      if (hh < H && col < W && co0 + 8 * ch < Co)
+        *reinterpret_cast<uint4*>(y + ((static_cast<int64_t>(b) * H + hh) * W + col) * Co + co0 +
+                                  8 * ch) =
+            *reinterpret_cast<const uint4*>(st + p * kSOutPitch + ch * 16);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // the 8 warps of each column, in order, into the tile's scratch row
+  if (t < 2 * kSBN) {
+    const int col = t % kSBN;
+    const float* red = t < kSBN ? red_s : red_q;
+    float v = 0.0f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) v += red[w8 * kSBN + col];
+    if (co0 + col < Co) {
+      float* part = t < kSBN ? part_s : part_q;
+      part[static_cast<int64_t>(tile) * Co + co0 + col] = v;
+    }
+  }
+}
+
+template <int CI>
+int launch_ci8(const void* x, const void* w, void* y, float* part_s, float* part_q, int H, int W,
+               int Co, int tiles, int tiles_h, int tiles_w, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned int>(tiles),
+                  static_cast<unsigned int>((Co + kSBN - 1) / kSBN));
+  conv3x3_stats_ci8_kernel<CI><<<grid, kSThreads, 0, st>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint32_t*>(w),
+      static_cast<__nv_bfloat16*>(y), part_s, part_q, H, W, Co, tiles_h, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[c] = sum over rows r of part[r][c], in a fixed order: lane l of
 // channel c sums rows l, l + 32, ... in turn, then the 32 lane sums are
 // added in lane order.  blockIdx.y picks the sums (0) or the squares (1).
@@ -813,6 +1067,33 @@ int vaeunet_conv3x3_stats_bf16_wgmma(const void* x, const void* w, void* y, floa
                                         tiles_w, st)
                      : launch_wgmma<128>(x, w, y, part_s, part_q, B, H, W, Ci, Co, tiles,
                                          tiles_h, tiles_w, st);
+  if (rc != 0) return rc;
+  return reduce_partials(part_s, part_q, s, q, tiles, Co, st);
+}
+
+// x: NHWC bf16 with 1 <= Ci <= 8 (2-byte aligned); w: [Co][K padded to 16]
+// bf16 on a 4-byte address, k = (ky * 3 + kx) * Ci + c, zero past 9 * Ci;
+// y on a 16-byte address; Co a multiple of 8 (any other is refused).
+int vaeunet_conv3x3_stats_bf16_ci8(const void* x, const void* w, void* y, float* part_s,
+                                   float* part_q, float* s, float* q, int B, int H, int W, int Ci,
+                                   int Co, int tiles, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_h = (H + kSTH - 1) / kSTH;
+  const int tiles_w = (W + kSTW - 1) / kSTW;
+  if (tiles != B * tiles_h * tiles_w || Ci < 1 || Ci > 8 || Co < 8 || Co % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc;
+  switch (Ci) {
+    case 1: rc = launch_ci8<1>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 2: rc = launch_ci8<2>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 3: rc = launch_ci8<3>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 4: rc = launch_ci8<4>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 5: rc = launch_ci8<5>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 6: rc = launch_ci8<6>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    case 7: rc = launch_ci8<7>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+    default: rc = launch_ci8<8>(x, w, y, part_s, part_q, H, W, Co, tiles, tiles_h, tiles_w, st); break;
+  }
   if (rc != 0) return rc;
   return reduce_partials(part_s, part_q, s, q, tiles, Co, st);
 }

@@ -73,15 +73,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "conv_bn_stats": {
         "vaeunet_conv3x3_stats_f32": _CONV_F32_ARGS,
         "vaeunet_conv3x3_stats_bf16_wgmma": _CONV_ARGS,
+        "vaeunet_conv3x3_stats_bf16_ci8": _CONV_ARGS,
     },
 }
 
-# kernel -> launches since the last reset.  "resize" and "conv_bn_stats" count
-# their wrapper's launches on any route; "resize_row" and "conv_bn_stats_fp32"
-# those of them that took the row kernel and the fp32 kernel.
+# kernel -> launches since the last reset.  "resize" counts its wrapper's
+# launches on any route, "resize_row" those of them that took the row kernel;
+# "conv_bn_stats" counts its wrapper's launches of the wgmma and the fp32
+# kernels, "conv_bn_stats_fp32" those of the fp32 one, and
+# "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in "conv_bn_stats").
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
                             "resize_row": 0, "resize_bwd": 0, "conv_bn_stats": 0,
-                            "conv_bn_stats_fp32": 0}
+                            "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # C function -> the bound ctypes function (the names are unique across libraries)

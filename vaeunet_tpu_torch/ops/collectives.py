@@ -2,7 +2,7 @@
 
 New in the port: the JAX package gets its collectives from XLA once a
 mesh axis is named (``psum`` / ``pmean`` under ``shard_map``, inserted
-all-reduces and all-gathers under ``pjit``).  Here they are three autograd
+all-reduces and all-gathers under ``pjit``).  Here they are five autograd
 Functions, each built on ``all_reduce`` alone, the one collective that
 every backend takes for CUDA tensors (gloo's CUDA support covers
 ``all_reduce`` and ``broadcast`` but not ``all_gather`` or
@@ -20,7 +20,15 @@ same code as ranks on their own cards over NCCL:
   compute one replicated result (the column-parallel outputs);
 - :func:`copy_to_group`: the identity, whose backward sums the cotangents
   over the group (the input of a column-parallel conv: each rank's slice
-  of output channels contributes its part of the input's gradient).
+  of output channels contributes its part of the input's gradient);
+- :func:`scatter_to_group`: this rank's part of a replicated tensor along a
+  dimension, whose backward gathers the parts' cotangents (the input of a
+  row-parallel conv: upstream is replicated, so every rank needs the whole
+  gradient);
+- :func:`reduce_from_group`: the sum over the group, whose backward is the
+  identity (a row-parallel conv's partial outputs: downstream is
+  replicated, so each rank's cotangent is already the whole one, and
+  summing it would multiply the gradient by the group's size).
 
 :func:`rank_rows` decides which rows of a global batch a data rank holds
 (the step, the loop's ``shard_batch`` and the tests all take it from here).
@@ -81,20 +89,29 @@ class _CopyToGroup(torch.autograd.Function):
         return _reduce_(g.clone(), ctx.group), None
 
 
+def _format(x: torch.Tensor) -> torch.memory_format:
+    return (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format)
+
+
+def _gather(x: torch.Tensor, dim: int, group, fmt) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`, as a sum of zero-padded
+    copies (exact), in memory format `fmt`."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    shape = list(x.shape)
+    part = shape[dim]
+    shape[dim] *= world
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device).contiguous(memory_format=fmt)
+    out.narrow(dim, rank * part, part).copy_(x)
+    return _reduce_(out, group)
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, sum_grads):
         ctx.dim, ctx.group, ctx.sum_grads = dim, group, sum_grads
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
-        shape = list(x.shape)
-        ctx.part = shape[dim]
-        shape[dim] *= world
-        fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
-               and x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format)
-        ctx.fmt = fmt
-        out = torch.zeros(shape, dtype=x.dtype, device=x.device).contiguous(memory_format=fmt)
-        out.narrow(dim, rank * ctx.part, ctx.part).copy_(x)
-        return _reduce_(out, group)
+        ctx.part, ctx.fmt = x.shape[dim], _format(x)
+        return _gather(x, dim, group, ctx.fmt)
 
     @staticmethod
     def backward(ctx, g):
@@ -102,6 +119,31 @@ class _Gather(torch.autograd.Function):
             g = _reduce_(g.clone(), ctx.group)
         part = g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.part, ctx.part)
         return part.contiguous(memory_format=ctx.fmt), None, None, None
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.fmt = dim, group, _format(x)
+        world = dist.get_world_size(group)
+        if x.shape[dim] % world:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over {world} ranks")
+        part = x.shape[dim] // world
+        return x.narrow(dim, dist.get_rank(group) * part, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(memory_format=ctx.fmt), ctx.dim, ctx.group, ctx.fmt), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def rank_rows(n: int, n_data: int, data_rank: int, accum: int = 1) -> np.ndarray:
@@ -127,6 +169,18 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """`x` itself forward; the cotangent summed over `group` backward."""
     return _CopyToGroup.apply(x, group)
+
+
+def scatter_to_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal part of `x` along `dim` forward; the parts'
+    cotangents gathered over `group` backward."""
+    return _ScatterToGroup.apply(x, dim, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the ranks of `group` forward (a new tensor); the cotangent
+    itself backward."""
+    return _ReduceFromGroup.apply(x, group)
 
 
 def gather(x: torch.Tensor, dim: int, group, sum_grads: bool = True) -> torch.Tensor:

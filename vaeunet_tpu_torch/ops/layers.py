@@ -69,11 +69,20 @@ class Conv(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
-    def conv_stats(self, x: torch.Tensor, weight: torch.Tensor):
-        """(y, Σy, Σy²) of this conv at `weight` through the conv + moments
-        kernel (:func:`conv3x3_bn`'s route; a column-parallel conv of
-        ``parallel/tp.py`` gathers its slice's)."""
-        return conv3x3_bn_stats(x, weight)
+    # tensor parallelism's two hooks around the conv itself, identities
+    # here: a column-parallel conv of ``parallel/tp.py`` marks its input for
+    # the backward's sum over the model group and gathers its slice of
+    # output channels.  :func:`conv3x3_bn` calls them outside the products
+    # remat 'save_convs' keeps, so that the kept products are the slice's.
+    def tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def tp_output(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return t
+
+    def local_conv(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """This rank's conv of `x` at `weight`, without bias or hooks."""
+        return nn.Conv2d._conv_forward(self, x, weight, None)
 
     def takes_bn_stats_kernel(self) -> bool:
         """3x3, stride 1, pad 1, no bias, no groups or dilation: the shape
@@ -205,10 +214,11 @@ def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.
         y = conv(x)
         return bn_relu(y, bn) if relu else bn(y)
     w = conv.weight.to(x.dtype)
+    x = conv.tp_input(x)
     if conv.takes_bn_stats_kernel():
-        y, s, q = _kept(conv, x, w, lambda: conv.conv_stats(x, w))
-        y = bn.forward_moments(y, s, q)
+        y, s, q = _kept(conv, x, w, lambda: conv3x3_bn_stats(x, w))
+        y = bn.forward_moments(conv.tp_output(y), conv.tp_output(s, 0), conv.tp_output(q, 0))
     else:
-        (y,) = _kept(conv, x, w, lambda: (conv._conv_forward(x, w, None),))
-        y = bn(y)
+        (y,) = _kept(conv, x, w, lambda: (conv.local_conv(x, w),))
+        y = bn(conv.tp_output(y))
     return F.relu(y) if relu else y

@@ -20,6 +20,16 @@ where Ci is not a multiple of 8 the wrapper zero-pads the channels of x and
 w to the next one (:func:`pad_channels`); zero channels add nothing to y or
 the moments.
 
+A bf16 conv of at most ``SMALL_CI_MAX`` = 8 input channels (the plain
+UNet's first, Ci = 3) takes another kernel (:func:`route`): an implicit
+im2col of K = 9 x Ci, padded to a multiple of 16, on ``mma.sync``, a 4 x 64
+pixel tile and 64 output channels a block, the (tile + 2) halo of the real
+channels loaded once, y written as 16-byte vectors.  Its bound is the y
+write, not the operations.  It reads x as it is (no padded copy) and takes
+the weights [Co, K padded], k = (ky * 3 + kx) * Ci + c
+(:func:`weights_small_ci`); Co must be a multiple of 8, or the conv takes
+the ``wgmma`` kernel with the padding above.
+
 fp32 (what ``TrainConfig.amp = False`` trains with, and what holds the card
 against the CPU to 1e-5) is a register-tiled SIMT kernel with true fp32
 FMAs, bound by the 67 TFLOP/s of the fp32 pipes: 128 threads make a tile's
@@ -31,8 +41,9 @@ layout).  It takes the weights tap-major, [9, ci_pad, co_pad] with tap =
 ky * 3 + kx and zeros beyond Ci and Co (:func:`weights_tap_major`), so the
 weight copies need no guard.
 
-Both write one row of partial moments per 8 x 16 tile
-(:func:`scratch_rows`), reduced in a fixed order.
+Each writes one row of partial moments per tile of its own (8 x 16 pixels,
+4 x 64 on the Ci <= 8 route; :func:`scratch_rows`), reduced in a fixed
+order.
 
 The backward follows ``_bwd``: the moment cotangents fold into the output
 cotangent, g = gy + gs + 2 y gq in fp32 (plain torch; a missing cotangent
@@ -45,7 +56,7 @@ cast's own backward.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +75,13 @@ F32_CHUNK, F32_STAGES, F32_BLOCK_CO = 8, 3, 64
 # the padding of its weights: any chunk the kernel may be built with divides
 # F32_CI_ALIGN; the step's channel counts are multiples of both already
 F32_CI_ALIGN, F32_CO_ALIGN = 32, F32_BLOCK_CO
+# the bf16 route for few input channels (conv3x3_stats_ci8_kernel): its
+# largest Ci, output tile (kSTH x kSTW), the multiple of its K and of Co
+SMALL_CI_MAX, SMALL_TILE_H, SMALL_TILE_W, SMALL_K_ALIGN, SMALL_CO_ALIGN = 8, 4, 64, 16, 8
+# the C entries of csrc/conv_bn_stats.cu
+F32_ENTRY = "vaeunet_conv3x3_stats_f32"
+WGMMA_ENTRY = "vaeunet_conv3x3_stats_bf16_wgmma"
+SMALL_CI_ENTRY = "vaeunet_conv3x3_stats_bf16_ci8"
 
 
 def conv3x3_bn_stats_plain(x: torch.Tensor, weight: torch.Tensor
@@ -91,9 +109,18 @@ def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
                          "(cast it before the call)")
 
 
-def scratch_rows(b: int, h: int, w: int) -> int:
-    """Rows of the partial-moment scratch: one per TILE_H x TILE_W tile."""
-    return b * (-(-h // TILE_H)) * (-(-w // TILE_W))
+def scratch_rows(b: int, h: int, w: int, tile_h: int = TILE_H, tile_w: int = TILE_W) -> int:
+    """Rows of the partial-moment scratch: one per tile_h x tile_w tile."""
+    return b * (-(-h // tile_h)) * (-(-w // tile_w))
+
+
+def route(ci: int, co: int, dtype: torch.dtype) -> str:
+    """The C entry a conv of `ci` -> `co` channels in `dtype` takes."""
+    if dtype == torch.float32:
+        return F32_ENTRY
+    if ci <= SMALL_CI_MAX and co % SMALL_CO_ALIGN == 0:
+        return SMALL_CI_ENTRY
+    return WGMMA_ENTRY
 
 
 def pad_channels(x: torch.Tensor, ci: int) -> torch.Tensor:
@@ -127,6 +154,14 @@ def weights_tap_major(weight: torch.Tensor, ci: int, co: int) -> torch.Tensor:
     return out
 
 
+def weights_small_ci(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW [Co, Ci, 3, 3] -> contiguous [Co, K], k = (ky * 3 + kx) * Ci + c,
+    zeros from 9 * Ci up to K, the next multiple of SMALL_K_ALIGN."""
+    co, ci = weight.shape[:2]
+    w = weight.permute(0, 2, 3, 1).reshape(co, 9 * ci)
+    return F.pad(w, (0, _round_up(9 * ci, SMALL_K_ALIGN) - 9 * ci)).contiguous()
+
+
 def fp32_smem_bytes(chunk: int = F32_CHUNK, stages: int = F32_STAGES) -> int:
     """Shared memory of one block of the fp32 kernel, as
     ``csrc/conv_bn_stats.cu`` lays it out: per stage the (TILE_H + 2) rows
@@ -140,36 +175,55 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
-    """The launch; few tensor ops, since each costs host time on every call."""
+def launch_args(x: torch.Tensor, weight: torch.Tensor, fn: Optional[str] = None):
+    """The launch of :func:`route`'s kernel (or of C entry `fn`, which must
+    take x's type: a benchmark's comparison), prepared: -> (C entry, its
+    arguments less the stream, (y, s, q) it fills, the tensors the
+    arguments point into, to be kept alive until the launch).  Few tensor
+    ops, since each costs host time on every call."""
     b, ci, h, w = x.shape
     co = weight.shape[0]
     dev = x.device
     y = torch.empty((b, co, h, w), dtype=x.dtype, device=dev, memory_format=torch.channels_last)
-    if y.numel() == 0:
-        return y, torch.zeros(co, device=dev), torch.zeros(co, device=dev)
-    if x.dtype == torch.bfloat16:
+    fn = fn or route(ci, co, x.dtype)
+    tile = (TILE_H, TILE_W)
+    if fn == SMALL_CI_ENTRY:
+        xk, wk, dims, tile = x, weights_small_ci(weight), (ci, co), (SMALL_TILE_H, SMALL_TILE_W)
+    elif fn == WGMMA_ENTRY:
         ci_k = _round_up(ci, CI_ALIGN)
         xk = x if ci_k == ci and x.data_ptr() % 16 == 0 else pad_channels(x, ci_k)
-        wk = weights_k_major(weight, ci_k)
-        fn, dims = "vaeunet_conv3x3_stats_bf16_wgmma", (ci_k, co)
+        wk, dims = weights_k_major(weight, ci_k), (ci_k, co)
     else:
         xk = x
         pads = (_round_up(ci, F32_CI_ALIGN), _round_up(co, F32_CO_ALIGN))
-        wk = weights_tap_major(weight, *pads)
-        fn, dims = "vaeunet_conv3x3_stats_f32", (ci, co, *pads)
-    tiles = scratch_rows(b, h, w)
+        wk, dims = weights_tap_major(weight, *pads), (ci, co, *pads)
+    tiles = scratch_rows(b, h, w, *tile)
     # s, q and the two [tiles, Co] scratch halves in one allocation; the
     # reduce kernel writes every element of s and q
     buf = torch.empty(2 * (tiles + 1) * co, dtype=torch.float32, device=dev)
     s, q = buf[:co], buf[co:2 * co]
     p = buf.data_ptr() + 8 * co
-    _ext.call("conv_bn_stats", fn, dev, xk.data_ptr(), wk.data_ptr(), y.data_ptr(),
-              p, p + 4 * tiles * co, s.data_ptr(), q.data_ptr(), b, h, w, *dims, tiles)
-    _ext.count_launch("conv_bn_stats")
-    if x.dtype == torch.float32:
-        _ext.count_launch("conv_bn_stats_fp32")
-    return y, s, q
+    args = (xk.data_ptr(), wk.data_ptr(), y.data_ptr(), p, p + 4 * tiles * co, s.data_ptr(),
+            q.data_ptr(), b, h, w, *dims, tiles)
+    return fn, args, (y, s, q), (xk, wk, buf)
+
+
+def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
+    b, _, h, w = x.shape
+    co = weight.shape[0]
+    if b * co * h * w == 0:
+        y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device,
+                        memory_format=torch.channels_last)
+        return y, torch.zeros(co, device=x.device), torch.zeros(co, device=x.device)
+    fn, args, out, _ = launch_args(x, weight)
+    _ext.call("conv_bn_stats", fn, x.device, *args)
+    if fn == SMALL_CI_ENTRY:
+        _ext.count_launch("conv_bn_stats_ci8")
+    else:
+        _ext.count_launch("conv_bn_stats")
+        if fn == F32_ENTRY:
+            _ext.count_launch("conv_bn_stats_fp32")
+    return out
 
 
 def fold_cotangents(y: torch.Tensor, gy, gs, gq, dtype: torch.dtype) -> torch.Tensor:

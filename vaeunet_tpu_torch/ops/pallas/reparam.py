@@ -3,15 +3,18 @@ wrappers and their plain versions.  Port of
 ``vaeunet_tpu/ops/pallas/reparam.py`` (``normal_pallas`` and
 ``reparameterize_pallas``).
 
-Both kernels of ``csrc/reparam.cu`` draw element i of the output from
-Philox4x32-10 with counter i and the 64-bit key ``seed``, and map the bits
-to a normal by the TPU kernel's Box-Muller (u1 = (b1 >> 8) * 2^-24 + 2^-25,
-never 0; u2 = (b2 >> 8) * 2^-24; z = sqrt(-2 ln u1) * cos(2 pi u2)).  The
-plain versions compute the same stream with int64 tensor arithmetic, so on
-the card a kernel and its plain version agree element for element up to the
-ulps of log, cos and exp.  Neither matches ``jax.random`` or the TPU's bits:
-parity with the JAX package is held at the distribution level, or by feeding
-both sides the same eps.
+Both kernels of ``csrc/reparam.cu`` draw their noise from one stream:
+Philox4x32-10 under the 64-bit key ``seed``, one call per 4 consecutive
+elements.  Counter k = i >> 2 gives words (x, y, z, w); the TPU kernel's
+Box-Muller (u1 = (b1 >> 8) * 2^-24 + 2^-25, never 0; u2 = (b2 >> 8) *
+2^-24; r = sqrt(-2 ln u1), t = 2 pi u2) turns each pair into both of its
+normals: element 4k = r cos t and 4k + 1 = r sin t of (x, y), 4k + 2 and
+4k + 3 the same of (z, w).  Element i depends on its index only.  The plain
+versions compute the same stream with int64 tensor arithmetic, so on the
+card a kernel and its plain version agree element for element up to the
+ulps of log, sin, cos and exp.  Neither matches ``jax.random`` or the TPU's
+bits: parity with the JAX package is held at the distribution level, or by
+feeding both sides the same eps.
 
 A CUDA device goes to the kernel; the CPU to the plain version.
 """
@@ -54,19 +57,22 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def _philox_bits(n: int, seed: int, device) -> tuple:
-    """Words x, y of Philox4x32-10 at counters (i, 0, 0, 0) for i < n."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(i)
-    x, y, _, _ = philox4x32_10(i & _MASK32, (i >> 32) & _MASK32, zero, zero,
-                               seed & _MASK32, (seed >> 32) & _MASK32)
-    return x, y
+def philox_words(calls: int, seed: int, device) -> tuple:
+    """Words (x, y, z, w) of Philox4x32-10 at counters (k, 0) for k < `calls`
+    (k in the low 64 bits), under key `seed`."""
+    k = torch.arange(calls, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(k)
+    return philox4x32_10(k & _MASK32, (k >> 32) & _MASK32, zero, zero,
+                         seed & _MASK32, (seed >> 32) & _MASK32)
 
 
-def _box_muller(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+def box_muller(b1: torch.Tensor, b2: torch.Tensor) -> tuple:
+    """Both normals of the word pairs (b1, b2): (r cos t, r sin t)."""
     u1 = (b1 >> 8).float() * (1.0 / (1 << 24)) + (1.0 / (1 << 25))
     u2 = (b2 >> 8).float() * (1.0 / (1 << 24))
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    radius = torch.sqrt(-2.0 * torch.log(u1))
+    theta = _TWO_PI * u2
+    return radius * torch.cos(theta), radius * torch.sin(theta)
 
 
 def _check_seed(seed: int) -> int:
@@ -81,8 +87,9 @@ def normal_plain(shape: Sequence[int], seed: int, device="cpu") -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
-    b1, b2 = _philox_bits(n, _check_seed(seed), device)
-    return _box_muller(b1, b2).view(shape)
+    x, y, z, w = philox_words(-(-n // 4), _check_seed(seed), device)
+    lanes = (*box_muller(x, y), *box_muller(z, w))
+    return torch.stack(lanes, dim=1).view(-1)[:n].view(shape)
 
 
 def _empty_f32(shape: Sequence[int], device: torch.device) -> torch.Tensor:
