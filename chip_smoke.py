@@ -16,8 +16,14 @@ the card, in phases that each fail the run with a non-zero exit:
    sums; the resize kernels, forward and backward, at the request's five
    shapes (fp32, batch 8) and the step's five (bf16 and fp32, batch 16),
    through the wrapper and the launch alone, with their time per request
-   and per step; at the one-channel logits resize the row kernel, the
-   scalar kernel and the plain version bit for bit;
+   and per step; at the one-channel logits resize and its gradient the row
+   kernels, the scalar kernels and the plain versions bit for bit, the
+   gradient's launch alone timed beside the scalar kernel's and
+   upsample_bilinear2d_backward; ``bn_relu`` (the fold inside the kernel)
+   at the twelve shapes of the request in fp32 and of the eval step in
+   bf16, through the wrapper and the launch alone beside F.batch_norm +
+   relu_, with each path's sum of launches x ms against its bound and the
+   shapes at which the kernel is slower than the library call;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -58,8 +64,8 @@ the card, in phases that each fail the run with a non-zero exit:
    loader's bit for bit; each augmentation transform on the card equals the
    CPU's at the same parameters (tests/test_torch_augment.py's
    tolerances); the indexed augmented step moves every parameter; the
-   loop's launches equal 37 conv, 5 resize (1 row), 5 resize backward and 2
-   noise draws a train step plus 30 bn_relu, 5 resize (1 row) and 1 noise
+   loop's launches equal 37 conv, 5 resize (1 row), 5 resize backward (1
+   row) and 2 noise draws a train step plus 30 bn_relu, 5 resize (1 row) and 1 noise
    draw an eval step; a checkpoint round trip is exact; a resume from
    ``best`` runs one more epoch from the saved epoch + 1; one epoch runs
    host-fed (no cache, pinned copies);
@@ -109,7 +115,9 @@ the resnet34 step lacks (the resnet50 decoder's [16,2048,16,16] -> 32^2,
 the bilinear UNet's [16,64,256,256] -> 512^2), the one-channel resizes of
 those paths (the mask downsamples by 4, 8 and 16 and the request's
 upscale) bit for bit, ``bn_relu`` at phase 9's fp32 shapes (its
-widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]), the
+widest [1,64,1424,2144] and its odd-sized bottom [1,1024,89,134]), at the
+resnet50 encoder's C = 2048 in both types and on a view off a 16-byte
+address (the scalar route) bit for bit, the
 noise kernel at phase 13's augmentation shape [16,512,512,3], phase 16's
 [8,512,512,3] and counts off a multiple of 4, and the bf16 Ci <= 8 conv
 route at Ci 1, 3, 4 and 8 and at the plain UNet's [16,3,512,512]->64
@@ -193,6 +201,7 @@ from vaeunet_tpu_torch.training.pretrain import (
 )
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
 from vaeunet_tpu_torch.utils import figures, profiling
+from vaeunet_tpu_torch.utils.resize_tune import device_ms
 from vaeunet_tpu_torch.utils.tracking import Tracker
 from vaeunet_tpu_torch.vae_utils import to_nchw
 
@@ -308,50 +317,140 @@ def _record(table: dict, name: str, **kw) -> None:
     rec.update(kw)
 
 
-# (NCHW, types): the VAE-UNet request's widest and narrowest pairs, then the
-# plain UNet request's (fp32 at 1424x2144): its widest tensor, and the
-# bottom's odd 89x134
-BN_RELU_SHAPES = (((8, 64, 256, 256), (torch.float32, torch.bfloat16)),
-                  ((8, 512, 16, 16), (torch.float32, torch.bfloat16)),
-                  ((1, 64, 1424, 2144), (torch.float32,)),
-                  ((1, 1024, 89, 134), (torch.float32,)))
+# The VAE-UNet's eval BN+ReLU pairs at a 512^2 tile: (C, H = W, launches
+# of the resnet34 encoder, launches of one decoder sample).  Encoder: the
+# stem, and the first conv of each of the 3, 4, 6, 3 blocks; decoder:
+# z_initial, then at each level z_proj and the two convs
+BN_RELU_LAYERS = ((64, 256, 1, 2), (64, 128, 3, 0), (128, 64, 4, 0), (256, 32, 6, 0),
+                  (512, 16, 3, 1), (32, 32, 0, 1), (32, 64, 0, 1), (32, 128, 0, 1),
+                  (32, 256, 0, 1), (512, 32, 0, 2), (256, 64, 0, 2), (128, 128, 0, 2))
+# other shapes: the plain UNet request's (1424x2144, fp32) widest tensor and
+# its odd-sized bottom, the resnet50 encoder's last stage, and the request's
+# widest and narrowest in bf16
+BN_RELU_OTHER_SHAPES = (((1, 64, 1424, 2144), (torch.float32,)),
+                        ((1, 1024, 89, 134), (torch.float32,)),
+                        ((8, 2048, 16, 16), (torch.float32, torch.bfloat16)),
+                        ((8, 64, 256, 256), (torch.bfloat16,)),
+                        ((8, 512, 16, 16), (torch.bfloat16,)))
+
+
+def bn_relu_layers(batch: int, encoders: int, samples: int) -> list:
+    """[(NCHW, launches)] of the twelve shapes for `encoders` tile batches
+    of `batch` images, each decoded `samples` times."""
+    return [((batch, c, hw, hw), enc * encoders + dec * encoders * samples)
+            for c, hw, enc, dec in BN_RELU_LAYERS]
+
+
+def bn_relu_stats(c: int, g) -> tuple:
+    return (torch.rand(c, device="cuda", generator=g) + 0.5,
+            torch.randn(c, device="cuda", generator=g),
+            torch.randn(c, device="cuda", generator=g) * 0.5,
+            torch.rand(c, device="cuda", generator=g) + 0.5)
+
+
+def bn_relu_case(x: torch.Tensor, stats: tuple, name: str) -> dict:
+    """The kernel against its plain version (fp32 within 1e-6, bf16 one
+    ulp; bit for bit logged), then timed: through the wrapper ("w"), the
+    launch alone ("a"), F.batch_norm + relu_, in turns, the least of three
+    rounds; the launch and the library call on the device alone ("d", a
+    CUDA graph of 50 of them replayed: no host work between two); the plain
+    version; the bound."""
+    scale, bias, mean, var = stats
+    y = bn_relu_mod.fused_bn_relu(x, *stats)
+    ref = bn_relu_mod.fused_bn_relu_plain(x, *bn_relu_mod.fold(*stats))
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    if x.dtype == torch.float32:
+        check(err <= 1e-6, f"{name}: max err {err} > 1e-6")
+    else:   # one bf16 ulp
+        ulp_ok = ((y.float() - ref.float()).abs() <= ref.float().abs() * 2.0 ** -7).all().item()
+        check(ulp_ok, f"{name}: differs by more than 1 ulp")
+    same = torch.equal(y, ref)
+    del ref
+    fn, args = bn_relu_mod.launch_args(x, y, *stats, 1e-5)
+    nbytes = 2 * x.numel() * x.element_size()
+    it = iters_for(nbytes)
+    t = paired_ms({"w": lambda: bn_relu_mod.fused_bn_relu(x, *stats),
+                   "a": lambda: _ext.call("bn_relu", fn, x.device, *args),
+                   "library": lambda: F.relu_(F.batch_norm(x, mean, var, scale, bias, False,
+                                                          0.0, 1e-5))}, it)
+    d = device_ms(lambda: _ext.call("bn_relu", fn, x.device, *args))
+    d_library = device_ms(lambda: F.relu_(F.batch_norm(x, mean, var, scale, bias, False, 0.0,
+                                                       1e-5)))
+    a, b = bn_relu_mod.fold(*stats)
+    plain = time_ms(lambda: bn_relu_mod.fused_bn_relu_plain(x, a, b), it)
+    bnd, by = bound_ms(nbytes, BN_RELU_OPS * x.numel())
+    plan = bn_relu_mod.plan(x.numel() // x.shape[1], x.shape[1], x.element_size(),
+                            (x.data_ptr() | y.data_ptr()) % 16 == 0)
+    log(f"{name}: err {err:.3g} (bit for bit: {same})  w {t['w']:.4f} ms  a {t['a']:.4f} ms  "
+        f"d {d:.4f} ms ({nbytes / d / 1e9:.3f} TB/s, {bnd / d:.0%} of the bound)  plain "
+        f"{plain:.4f} ms  F.batch_norm+relu_ {t['library']:.4f} ms (d {d_library:.4f} ms)  "
+        f"bound {bnd:.4f} ms  {plan.route} V={plan.vec} block {plan.block} grid {plan.grid}")
+    return dict(err=err, w=t["w"], a=t["a"], d=d, library=t["library"], d_library=d_library,
+                plain=plain, bound=bnd, by=by)
+
+
+def log_bn_relu_sums(what: str, cases: list) -> None:
+    """Launches x ms summed over a path's shapes, and the shapes at which
+    the launch alone (and the wrapper) is slower than the library call."""
+    keys = ("a", "w", "d", "library", "d_library", "bound")
+    sums = {k: sum(n * r[k] for _, n, r in cases) for k in keys}
+    slower = {k: [list(s) for s, _, r in cases if r[k] > r[lib]] or "no shape"
+              for k, lib in (("a", "library"), ("w", "library"), ("d", "d_library"))}
+    log(f"bn_relu per {what}: launch alone {sums['a']:.3f} ms  wrapper {sums['w']:.3f} ms  "
+        f"device alone {sums['d']:.3f} ms  F.batch_norm+relu_ {sums['library']:.3f} ms "
+        f"(device alone {sums['d_library']:.3f} ms)  bound {sums['bound']:.3f} ms "
+        f"({sums['bound'] / sums['a']:.0%} of the launches alone, "
+        f"{sums['bound'] / sums['d']:.0%} of the device alone)")
+    log(f"bn_relu launch alone slower than F.batch_norm+relu_ at: {slower['a']}; wrapper "
+        f"slower at: {slower['w']}; device alone slower at: {slower['d']}")
 
 
 def kernel_bn_relu(table: dict) -> None:
+    """The request's twelve shapes in fp32 (batch 8, its launches per
+    request) and the eval step's in bf16 (batch 16, one sample), each
+    path's sum of launches x ms; the other paths' fp32 shapes; a tensor off
+    a 16-byte address (the scalar route) bit for bit."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    for shape, dtypes in BN_RELU_SHAPES:
-        c = shape[1]
-        scale = torch.rand(c, device="cuda", generator=g) + 0.5
-        bias = torch.randn(c, device="cuda", generator=g)
-        mean = torch.randn(c, device="cuda", generator=g) * 0.5
-        var = torch.rand(c, device="cuda", generator=g) + 0.5
-        a, b = bn_relu_mod.fold(scale, bias, mean, var)
+    batches = -(-len(compute_tile_grid(*IMAGE_HW, PATCH, OVERLAP)) // TILE_BATCH)
+    sets = ((torch.float32, bn_relu_layers(TILE_BATCH, batches, N_SAMPLES),
+             f"request ({batches} tile batches counted at {TILE_BATCH}, {N_SAMPLES} samples; "
+             f"the whole-image encoder's 17 batch-1 launches not counted)"),
+            (torch.bfloat16, bn_relu_layers(TRAIN_BATCH, 1, 1), "bf16 eval step (batch 16)"))
+    for dtype, layers, what in sets:
+        cases = []
+        for shape, n in layers:
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            name = f"bn_relu {list(shape)} {str(dtype)[6:]} x{n}"
+            r = bn_relu_case(x, bn_relu_stats(shape[1], g), name)
+            cases.append((shape, n, r))
+            main = shape == (8, 64, 256, 256) and dtype == torch.float32
+            _record(table, "bn_relu", err=r["err"], **(dict(
+                ms=r["a"], wrapper_ms=r["w"], device_ms=r["d"], plain_ms=r["plain"],
+                library_ms=r["library"], bound_ms=r["bound"], bound_by=r["by"],
+                shape=f"{list(shape)} fp32") if main else {}))
+            del x
+        log_bn_relu_sums(what, cases)
+    for shape, dtypes in BN_RELU_OTHER_SHAPES:
         for dtype in dtypes:
             x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
                 memory_format=torch.channels_last)
-            y = bn_relu_mod.fused_bn_relu(x, scale, bias, mean, var)
-            ref = bn_relu_mod.fused_bn_relu_plain(x, a, b)
-            torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
-            if dtype == torch.float32:
-                check(err <= 1e-6, f"bn_relu fp32 {shape}: max err {err} > 1e-6")
-            else:   # one bf16 ulp
-                ulp_ok = ((y.float() - ref.float()).abs()
-                          <= ref.float().abs() * 2.0 ** -7).all().item()
-                check(ulp_ok, f"bn_relu bf16 {shape}: differs by more than 1 ulp")
-            nbytes = 2 * x.numel() * x.element_size()
-            it = iters_for(nbytes)
-            k_ms = time_ms(lambda: bn_relu_mod.fused_bn_relu(x, scale, bias, mean, var), it)
-            p_ms = time_ms(lambda: bn_relu_mod.fused_bn_relu_plain(x, a, b), it)
-            l_ms = time_ms(lambda: F.relu_(F.batch_norm(x, mean, var, scale, bias, False,
-                                                       0.0, 1e-5)), it)
-            bnd, by = bound_ms(nbytes, BN_RELU_OPS * x.numel())
-            log(f"bn_relu {list(shape)} {str(dtype)[6:]}: err {err:.3g}  kernel {k_ms:.4f} ms  "
-                f"plain {p_ms:.4f} ms  F.batch_norm+relu {l_ms:.4f} ms  bound {bnd:.4f} ms")
-            main = shape == (8, 64, 256, 256) and dtype == torch.float32
-            _record(table, "bn_relu", err=err, **(dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by,
-                shape=f"{list(shape)} fp32") if main else {}))
+            r = bn_relu_case(x, bn_relu_stats(shape[1], g),
+                             f"bn_relu {list(shape)} {str(dtype)[6:]}")
+            _record(table, "bn_relu", err=r["err"])
+            del x
+    # a channels_last view 4 bytes off a 16-byte address: the scalar route
+    base = torch.randn(8 * 32 * 32 * 64 + 1, device="cuda", generator=g)
+    x = base[1:].view(8, 32, 32, 64).permute(0, 3, 1, 2)
+    stats = bn_relu_stats(64, g)
+    y = bn_relu_mod.fused_bn_relu(x, *stats)
+    check("scalar" == bn_relu_mod.plan(8 * 32 * 32, 64, 4, x.data_ptr() % 16 == 0).route,
+          "bn_relu: an offset view did not take the scalar route")
+    check(torch.equal(y, bn_relu_mod.fused_bn_relu_plain(x, *bn_relu_mod.fold(*stats))),
+          "bn_relu: the scalar route differs from the plain version")
+    log("bn_relu [8,64,32,32] fp32 off a 16-byte address: scalar route, bit for bit")
+    torch.cuda.empty_cache()
 
 
 # (input NCHW, output H = W) of the model's five resizes (four decoder
@@ -884,7 +983,7 @@ def kernel_resize_bwd(table: dict) -> None:
             other = torch.empty_like(gx)
             fn, args = resize_mm.launch_args(gy, other, True, backward=True, scalar=True)
             _ext.call("resize", fn, gy.device, *args)
-            check(torch.equal(gx, other), f"{name}: the tiled and scalar kernels differ")
+            check(torch.equal(gx, other), f"{name}: the chosen and the scalar kernels differ")
             del ref, lib, mag, other
             nbytes = (gy.numel() + gx.numel()) * gy.element_size()
             bnd, by = bound_ms(nbytes, RESIZE_OPS * gy.numel())
@@ -908,6 +1007,66 @@ def kernel_resize_bwd(table: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def kernel_resize_bwd_c1(table: dict) -> None:
+    """The logits' gradient, g [16,1,512,512] -> gx [16,1,256,256], both
+    conventions and both types: the row kernel, the scalar kernel and the
+    plain version bit for bit (the plain version on the host, where
+    index_add_ adds in index order; on the card it adds with atomics); the
+    row kernel's launch alone timed in turns with the scalar kernel's and
+    upsample_bilinear2d_backward, the least of three rounds, beside the
+    wrapper, the plain version on the card and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    shape, out = (16, 1, 256, 256), 512
+    for dtype in (torch.bfloat16, torch.float32):
+        for ac in (True, False):
+            gy = torch.randn((16, 1, out, out), device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            gx = resize_mm.resize_backward(gy, shape[2:], ac)
+            other = torch.empty_like(gx)
+            fn, args = resize_mm.launch_args(gy, other, ac, backward=True, scalar=True)
+            _ext.call("resize", fn, gy.device, *args)
+            ref = resize_mm.resize_backward_plain(gy.cpu(), shape[2:], ac)
+            torch.cuda.synchronize()
+            name = f"resize_bwd {list(shape)}<-{out}^2 {str(dtype)[6:]} ac={ac}"
+            err = (gx.cpu().float() - ref.float()).abs().max().item()
+            check("_row_bwd_" in resize_mm.launch_args(gy, gx, ac, backward=True)[0],
+                  f"{name}: did not take the row kernel")
+            check(torch.equal(gx, other), f"{name}: the row and the scalar kernels differ")
+            check(torch.equal(gx.cpu(), ref),
+                  f"{name}: the row kernel and the plain version differ")
+            del ref, other
+            _record(table, "resize_bwd_c1", err=err)
+            plan = resize_mm.plan_backward(shape[2:], (out, out), 1, gy.element_size(), ac, 16)
+            nbytes = (gy.numel() + gx.numel()) * gy.element_size()
+            bnd, by = bound_ms(nbytes, RESIZE_OPS * gy.numel())
+            t = paired_ms({"alone": resize_launch_only(gy, gx, ac, True),
+                           "scalar": lambda: _ext.call("resize", fn, gy.device, *args),
+                           "library": lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                               gy, [out, out], list(shape), ac, None, None)}, 1000)
+            w_ms = time_ms(lambda: resize_mm.resize_backward(gy, shape[2:], ac), 1000)
+            d = {k: device_ms(f) for k, f in (
+                ("row", resize_launch_only(gy, gx, ac, True)),
+                ("scalar", lambda: _ext.call("resize", fn, gy.device, *args)),
+                ("library", lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                    gy, [out, out], list(shape), ac, None, None)))}
+            p_ms = time_ms(lambda: resize_mm.resize_backward_plain(gy, shape[2:], ac), 50)
+            log(f"{name}: bit for bit (row = scalar = plain)  tile {plan.tile_h}x{plan.tile_w}, "
+                f"{plan.blocks} blocks, {plan.smem_bytes} B shared  launch alone "
+                f"{t['alone']:.4f} ms ({nbytes / t['alone'] / 1e9:.3f} TB/s, "
+                f"{bnd / t['alone']:.0%} of the bound)  scalar kernel alone {t['scalar']:.4f} ms  "
+                f"wrapper {w_ms:.4f} ms  plain {p_ms:.4f} ms  upsample_bilinear2d_backward "
+                f"{t['library']:.4f} ms  bound {bnd:.4f} ms; device alone (a CUDA graph of 50 "
+                f"launches): row {d['row']:.4f} ms  scalar {d['scalar']:.4f} ms  "
+                f"upsample_bilinear2d_backward {d['library']:.4f} ms")
+            if dtype == torch.bfloat16 and ac:
+                _record(table, "resize_bwd_c1", ms=t["alone"], wrapper_ms=w_ms, plain_ms=p_ms,
+                        library_ms=t["library"], bound_ms=bnd, bound_by=by,
+                        scalar_ms=t["scalar"], device_ms=d["row"],
+                        shape=f"g {[16, 1, out, out]} bf16 ac=True")
+            del gy, gx
+    torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     table: dict = {}
     kernel_bn_relu(table)
@@ -917,6 +1076,7 @@ def phase_kernels() -> dict:
     kernel_reparam(table)
     kernel_conv_bn_stats(table)
     kernel_resize_bwd(table)
+    kernel_resize_bwd_c1(table)
     return table
 
 
@@ -1049,10 +1209,10 @@ def expected_train_launches(steps: int, amp: bool = True) -> dict:
     8 decoder conv + BN pairs take the conv kernel, 4 decoder upsamples and
     the final one to 512^2 the resize kernel, whose backward runs as often,
     and the latent draw one noise kernel; eval BN+ReLU and the fused draw
-    are not on this path.  The logits' resize takes the row kernel, and
-    without `amp` every conv launch the fp32 kernel."""
+    are not on this path.  The logits' resize and its gradient take the row
+    kernels, and without `amp` every conv launch the fp32 kernel."""
     return launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
-                    resize=5, resize_row=1, resize_bwd=5, normal=1)
+                    resize=5, resize_row=1, resize_bwd=5, resize_bwd_row=1, normal=1)
 
 
 def first_step_moved_everything(model, before: dict) -> None:
@@ -1116,7 +1276,7 @@ def phase_train() -> dict:
                     "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
     expected = expected_train_launches(TIMED_STEPS)
     log(f"train launches over {TIMED_STEPS} steps: {counts}  expected {expected}")
-    for k in ("conv_bn_stats", "resize", "resize_row", "resize_bwd", "normal"):
+    for k in ("conv_bn_stats", "resize", "resize_row", "resize_bwd", "resize_bwd_row", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the training path")
     check(counts == expected, f"training launch counts {counts} differ from the code's {expected}")
 
@@ -1378,7 +1538,8 @@ def phase_r50_train() -> dict:
     config = train_config(backbone="resnet50", deep_supervision=True)
     state, counts, _, _ = train_path(
         config, "resnet50 VAE-UNet + deep supervision",
-        dict(conv_bn_stats=21, resize=5 + 3, resize_row=1 + 3, resize_bwd=5, normal=1))
+        dict(conv_bn_stats=21, resize=5 + 3, resize_row=1 + 3, resize_bwd=5, resize_bwd_row=1,
+             normal=1))
     del state
     torch.cuda.empty_cache()
     phase_train_parity("resnet50 VAE-UNet + deep supervision", backbone="resnet50",
@@ -1468,7 +1629,8 @@ def phase_remat() -> dict:
 
 FUNDUS_SPLITS = (("train", 4), ("val", 2))
 LOOP_SCALE, LOOP_EPOCHS = 0.5, 2
-TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, resize=5, resize_row=1, resize_bwd=5, normal=2)
+TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, resize=5, resize_row=1, resize_bwd=5,
+                           resize_bwd_row=1, normal=2)
 EVAL_STEP_LAUNCHES = dict(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
 
 
@@ -2295,7 +2457,7 @@ def phase_parallel() -> dict:
                     lr)
     per_rank = expected_train_launches(1, amp=False)
     fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, resize=5, resize_row=1,
-                   resize_bwd=5)                  # the steps on fed noise draw none
+                   resize_bwd=5, resize_bwd_row=1)   # the steps on fed noise draw none
     for r in ranks:
         check(r["dp_counts"] == per_rank and r["explicit_counts"] == fed == r["tp_counts"],
               f"rank {r['rank']}: step launches {r['dp_counts']} / {r['explicit_counts']} / "
@@ -2521,11 +2683,14 @@ KERNELS = (
     ("conv_bn_stats_ci8", "vaeunet_tpu_torch/csrc/conv_bn_stats.cu",
      "vaeunet_tpu/ops/pallas/conv_bn_stats.py:112"),
     ("resize_c1", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),
+    ("resize_bwd_c1", "vaeunet_tpu_torch/csrc/resize.cu",
+     "vaeunet_tpu/ops/pallas/resize_mm.py:125-151"),
 )
 # entry of the kernels line -> its launch counter where the names differ
-COUNTERS = {"resize_c1": "resize_row"}
+COUNTERS = {"resize_c1": "resize_row", "resize_bwd_c1": "resize_bwd_row"}
 # wrapper -> the counter of its second kernel, whose launches it also counts
-OTHER_KERNEL = {"resize": "resize_row", "conv_bn_stats": "conv_bn_stats_fp32"}
+OTHER_KERNEL = {"resize": "resize_row", "resize_bwd": "resize_bwd_row",
+                "conv_bn_stats": "conv_bn_stats_fp32"}
 
 
 def path_launches(name: str, *phases: dict) -> int:
@@ -2576,7 +2741,8 @@ def main() -> None:
                         "library_ms": rec["library_ms"], "shape": rec["shape"],
                         **{k: rec[k] for k in ("augmentation_shape", "pretext_shape",
                                                "small_ci_shape", "launch_ms",
-                                               "replaced_wgmma_ms") if k in rec},
+                                               "replaced_wgmma_ms", "scalar_ms", "device_ms")
+                           if k in rec},
                         **({"wrapper_ms": rec["wrapper_ms"]} if "wrapper_ms" in rec else {})})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

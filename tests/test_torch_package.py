@@ -157,8 +157,9 @@ def test_cpu_path_counts_no_launches():
     y, s, q = conv_bn_stats.conv3x3_bn_stats(x, torch.randn(5, 4, 3, 3))
     (y.sum() + s.sum() + q.sum()).backward()
     assert _ext.launch_counts() == {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
-                                    "resize_row": 0, "resize_bwd": 0, "conv_bn_stats": 0,
-                                    "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0}
+                                    "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
+                                    "conv_bn_stats": 0, "conv_bn_stats_fp32": 0,
+                                    "conv_bn_stats_ci8": 0}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

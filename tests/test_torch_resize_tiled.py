@@ -176,8 +176,13 @@ PATH = [(8, 4, *layer) for layer in PATH_LAYERS] + [(16, 2, *layer) for layer in
 def test_path_shapes_route_and_shared_memory(batch, elem, c, size, out, backward):
     planner = resize_mm.plan_backward if backward else resize_mm.plan_forward
     plan = planner((size, size), (out, out), c, elem, True, batch)
-    if c == 1 and backward:
-        assert plan == resize_mm.TilePlan("scalar")
+    if c == 1 and backward:                     # the logits' gradient: vectors along gx's W
+        vec = 16 // elem
+        assert plan.route == "row" and (plan.tile_h, plan.tile_w // vec) == resize_mm.ROW_BWD_TILE
+        assert plan.smem_bytes == resize_mm.row_bwd_smem_bytes(
+            plan.tile_h, plan.tile_w, plan.span_h, plan.span_w, plan.nnz_h, plan.nnz_w, elem)
+        assert 4 * plan.smem_bytes <= resize_mm.SMEM_LIMIT
+        assert plan.blocks == batch * (size // plan.tile_h) * (size // plan.tile_w) >= 3 * 132
         return
     if c == 1:                                  # the logits resize: vectors along W
         assert plan.route == "row" and (plan.tile_h, plan.tile_w) == resize_mm.ROW_TILE
@@ -321,16 +326,17 @@ def test_row_forward_model_equals_the_plain_version(in_hw, out_hw, ac, tile, dty
 
 
 @pytest.mark.parametrize("c,elem,out_w,forward,backward", [
-    (1, 4, 512, "row", "scalar"), (1, 2, 512, "row", "scalar"),   # the logits resize
-    (1, 4, 20, "row", "scalar"), (1, 2, 24, "row", "scalar"),
-    (1, 4, 18, "scalar", "scalar"), (1, 2, 20, "scalar", "scalar"),   # OW off a vector
+    (1, 4, 512, "row", "row"), (1, 2, 512, "row", "row"),   # the logits resize
+    (1, 4, 20, "row", "row"), (1, 2, 24, "row", "row"),
+    (1, 4, 18, "scalar", "scalar"), (1, 2, 20, "scalar", "scalar"),   # a row off a vector
     (3, 4, 512, "scalar", "scalar"), (4, 2, 512, "scalar", "scalar"),
     (4, 4, 512, "tiled", "tiled"), (8, 2, 512, "tiled", "tiled")])
 def test_route_rule_of_the_one_channel_resize(c, elem, out_w, forward, backward):
-    """C = 1 with an output row of whole 16-byte vectors takes the row
-    route forward; every other shape keeps the route it had."""
+    """C = 1 with a result row of whole 16-byte vectors (y forward, gx
+    backward) takes the row route both ways; every other shape keeps the
+    route it had."""
     assert resize_mm.plan_forward((9, 11), (21, out_w), c, elem, True, 2).route == forward
-    assert resize_mm.plan_backward((9, 11), (21, out_w), c, elem, True, 2).route == backward
+    assert resize_mm.plan_backward((21, out_w), (9, 11), c, elem, True, 2).route == backward
 
 
 def test_row_shared_memory_formula_matches_the_layout():

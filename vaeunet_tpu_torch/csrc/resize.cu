@@ -62,7 +62,7 @@
 //   pass 48 KB: the launch raises the kernel's limit first and returns that
 //   call's error like a launch error.
 //
-// row (resize_row_kernel, forward only): C = 1, in the path the logits
+// row (resize_row_kernel): C = 1, in the path the logits
 //   resize, where an NHWC row is contiguous along W; the output row is a
 //   whole number of 16-byte vectors and both tensors start on 16-byte
 //   addresses.  The tensors are small (10.5 MB at the path's shapes, inside
@@ -85,10 +85,34 @@
 //   quarter or an eighth of the store instructions
 //   (resize_mm.py::row_smem_bytes mirrors the layout).
 //
+// row, backward (resize_row_bwd_kernel): the logits' gradient, C = 1, gx's
+//   row a whole number of 16-byte vectors, both tensors on 16-byte
+//   addresses.  The scalar kernel ran it at 11 % of the bound: per gx
+//   element it walked both lists and loaded every g value that both name,
+//   up to 16 + 20 scalar loads with a division by C, and every gx column
+//   that shares a g row summed that row's H^T pairs again.  A block owns
+//   2^th gx rows x 2^tw vectors of neighbouring gx columns of one image:
+//     A  the g span its lists name (backward_spans) into shared memory with
+//        cp.async, its first column rounded down to a vector, a row every
+//        `pitch` elements, and the tile's lists beside it with 4-byte
+//        cp.async: every copy of the block in flight at once (a loop of
+//        loads and stores would wait out one round trip a pass, and the
+//        block's latency, not the bytes, sets this kernel's time);
+//     B  t[r, col] = sum_m hwt[m] g[hidx[m], col] once per (gx row, staged
+//        column) into an fp32 buffer, a thread making one vector of
+//        neighbouring columns from 16-byte loads;
+//     C  gx[r, w] = sum_k wwt[k] t[r, widx[k]]: a thread takes one column
+//        and kRowBwdRows rows, so neighbouring threads read neighbouring
+//        list heads and each pair is read once for all its rows, rounded
+//        once into the tile's gx in shared memory;
+//     D  the tile out, one 16-byte store a thread.
+//   Both sums run in list order from 0, so the bits are the scalar
+//   kernel's (resize_mm.py::row_bwd_smem_bytes mirrors the layout).
+//
 // scalar (resize_bilinear_kernel, resize_bilinear_bwd_kernel): every other
-//   shape (C = 3, a bf16 C = 4, an output row off a vector, a tensor off a
-//   16-byte address, and the backward at C = 1), and the yardstick the other
-//   routes are held against bit for bit.  One thread per element of the
+//   shape (C = 3, a bf16 C = 4, a result row off a vector, a tensor off a
+//   16-byte address), and the yardstick the other routes are held against
+//   bit for bit.  One thread per element of the
 //   physical [B, OH, OW, C] (backward: [B, H, W, C]) array, channel fastest,
 //   reading through the caches.  Grid: blockIdx.y walks the rows, x-blocks
 //   cover one row, so the only divisions per element are by C.
@@ -212,6 +236,11 @@ constexpr int kTiledThreads = 256;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -650,6 +679,152 @@ resize_row_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restr
   }
 }
 
+// ----- the row route of the gradient: C = 1, vectors along W -----------------
+
+struct RowBwdTile {
+  int B, H, W, OH, OW;           // gx [B, H, W], g [B, OH, OW]
+  int th, tw;                    // log2 of the tile's gx rows and of its vectors along W
+  int pitch;                     // elements of a staged g row and of a t row: whole vectors
+  int nnz_h, nnz_w;              // room for a tile's pairs
+  int tiles_h, tiles_w;
+};
+
+constexpr int kRowBwdRows = 4;   // stage C: the rows a thread sums a column's list into
+
+// Block = 2^th gx rows x 2^tw vectors of Vec<T>::kN neighbouring gx columns
+// of one image.  `vec_in`: OW is a whole number of vectors and g starts on a
+// 16-byte address, so stage A may copy 16 bytes a thread.
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads)
+resize_row_bwd_kernel(const T* __restrict__ g, T* __restrict__ gx, const int* __restrict__ hptr,
+                      const int* __restrict__ hidx, const float* __restrict__ hwt,
+                      const int* __restrict__ wptr, const int* __restrict__ widx,
+                      const float* __restrict__ wwt, const int* __restrict__ hspan,
+                      const int* __restrict__ wspan, const RowBwdTile a, const bool vec_in) {
+  using V = Vec<T>;
+  extern __shared__ uint4 smem[];
+  unsigned int blk = blockIdx.x;
+  const int tile_w = blk % a.tiles_w;
+  blk /= a.tiles_w;
+  const int tile_h = blk % a.tiles_h;
+  const int b = blk / a.tiles_h;
+  const int TH = 1 << a.th, TWV = 1 << a.tw, TWC = TWV * V::kN;
+  const int h_a = tile_h << a.th, w_a = tile_w * TWC;
+  // the tile's pairs: [m_a, m_b) of the row lists, [k_a, k_b) of the column lists
+  const int m_a = hptr[h_a], m_b = hptr[min(h_a + TH, a.H)];
+  const int k_a = wptr[w_a], k_b = wptr[min(w_a + TWC, a.W)];
+  const int oh_lo = hspan[2 * tile_h], sh = hspan[2 * tile_h + 1];
+  const int ow_hi = wspan[2 * tile_w] + wspan[2 * tile_w + 1];
+  const int ow_lo = wspan[2 * tile_w] & ~(V::kN - 1);      // rounded down to a vector
+  const int nv = (ow_hi - ow_lo + V::kN - 1) / V::kN;       // staged vectors a row; 0: none read
+
+  // shared memory: the tile's lists as they are in the tables (a pointer less
+  // m_a / k_a and an index less oh_lo / ow_lo where it is read) | the span of
+  // g [sh][pitch] | t [TH][pitch], fp32 | the tile's gx [TH][TWC], rounded
+  int* s_hptr = reinterpret_cast<int*>(smem);      // [TH + 1]
+  int* s_wptr = s_hptr + TH + 1;                   // [TWC + 1]
+  int* s_hidx = s_wptr + TWC + 1;                  // [nnz_h]
+  int* s_widx = s_hidx + a.nnz_h;                  // [nnz_w]
+  float* s_hwt = reinterpret_cast<float*>(s_widx + a.nnz_w);
+  float* s_wwt = s_hwt + a.nnz_h;
+  uint4* gs_v = smem + (4 * (TH + 1 + TWC + 1 + 2 * (a.nnz_h + a.nnz_w)) + 15) / 16;
+  T* gs = reinterpret_cast<T*>(gs_v);
+  float* ts = reinterpret_cast<float*>(gs_v + (sh * a.pitch * static_cast<int>(sizeof(T)) + 15) / 16);
+  T* out = reinterpret_cast<T*>(ts + TH * a.pitch);
+
+  // A: rows [oh_lo, oh_lo + sh) x columns [ow_lo, ow_hi) of g, and the lists,
+  // all with cp.async, so that every copy of the block is in flight at once;
+  // rows and columns past the edge get empty lists
+  const T* gb = g + static_cast<int64_t>(b) * a.OH * a.OW;
+  if (vec_in) {
+    for (int i = threadIdx.x; i < sh * nv; i += kTiledThreads) {
+      const int r = i / nv;
+      const int v = i - r * nv;
+      cp_async16(gs + r * a.pitch + v * V::kN,
+                 gb + static_cast<int64_t>(oh_lo + r) * a.OW + ow_lo + v * V::kN);
+    }
+  } else {
+    const int n = ow_hi - ow_lo;
+    for (int i = threadIdx.x; i < sh * n; i += kTiledThreads) {
+      const int r = i / n;
+      const int c = i - r * n;
+      gs[r * a.pitch + c] = gb[static_cast<int64_t>(oh_lo + r) * a.OW + ow_lo + c];
+    }
+  }
+  for (int i = threadIdx.x; i <= TH; i += kTiledThreads) cp_async4(s_hptr + i, hptr + min(h_a + i, a.H));
+  for (int i = threadIdx.x; i <= TWC; i += kTiledThreads) cp_async4(s_wptr + i, wptr + min(w_a + i, a.W));
+  for (int i = threadIdx.x; i < m_b - m_a; i += kTiledThreads) {
+    cp_async4(s_hidx + i, hidx + m_a + i);
+    cp_async4(s_hwt + i, hwt + m_a + i);
+  }
+  for (int i = threadIdx.x; i < k_b - k_a; i += kTiledThreads) {
+    cp_async4(s_widx + i, widx + k_a + i);
+    cp_async4(s_wwt + i, wwt + k_a + i);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // B: t[r, col] = sum over row r's pairs of hwt * g[hidx, col], in list order
+  // from 0; a thread makes one vector of neighbouring columns from 16-byte loads
+  for (int q = threadIdx.x; q < TH * nv; q += kTiledThreads) {
+    const int r = q / nv;
+    const int v = q - r * nv;
+    float t[V::kN];
+#pragma unroll
+    for (int j = 0; j < V::kN; ++j) t[j] = 0.0f;
+    for (int m = s_hptr[r] - m_a; m < s_hptr[r + 1] - m_a; ++m) {
+      const float wt = s_hwt[m];
+      float gv[V::kN];
+      V::unpack(*reinterpret_cast<const uint4*>(gs + (s_hidx[m] - oh_lo) * a.pitch + v * V::kN),
+                gv);
+#pragma unroll
+      for (int j = 0; j < V::kN; ++j) t[j] = __fadd_rn(t[j], __fmul_rn(wt, gv[j]));
+    }
+    float4* dst = reinterpret_cast<float4*>(ts + r * a.pitch + v * V::kN);
+#pragma unroll
+    for (int p = 0; p < V::kN / 4; ++p)
+      dst[p] = make_float4(t[4 * p], t[4 * p + 1], t[4 * p + 2], t[4 * p + 3]);
+  }
+  __syncthreads();
+
+  // C: gx[h, w] = sum over column w's pairs of wwt * t[h, widx], in list order
+  // from 0, rounded once.  A thread takes one column and kRowBwdRows rows:
+  // neighbouring threads read neighbouring list heads, and each pair is read
+  // once for all its rows.
+  for (int q = threadIdx.x; q < TWC * ((TH + kRowBwdRows - 1) / kRowBwdRows);
+       q += kTiledThreads) {
+    const int w = q & (TWC - 1);
+    const int r0 = (q / TWC) * kRowBwdRows;
+    float acc[kRowBwdRows];
+#pragma unroll
+    for (int i = 0; i < kRowBwdRows; ++i) acc[i] = 0.0f;
+    for (int k = s_wptr[w] - k_a; k < s_wptr[w + 1] - k_a; ++k) {
+      const float wt = s_wwt[k];
+      const float* col = ts + r0 * a.pitch + s_widx[k] - ow_lo;
+#pragma unroll
+      for (int i = 0; i < kRowBwdRows; ++i)
+        if (r0 + i < TH) acc[i] = __fadd_rn(acc[i], __fmul_rn(wt, col[i * a.pitch]));
+    }
+#pragma unroll
+    for (int i = 0; i < kRowBwdRows; ++i)
+      if (r0 + i < TH) store(out, (r0 + i) * TWC + w, acc[i]);
+  }
+  __syncthreads();
+
+  // D: the tile's gx rows, 16 bytes a thread (W is whole vectors: all of a
+  // vector or none of it is inside)
+  T* gxb = gx + static_cast<int64_t>(b) * a.H * a.W;
+  for (int q = threadIdx.x; q < (TH << a.tw); q += kTiledThreads) {
+    const int v = q & (TWV - 1);
+    const int r = q >> a.tw;
+    const int h = h_a + r;
+    const int w = w_a + v * V::kN;
+    if (h >= a.H || w >= a.W) continue;
+    *reinterpret_cast<uint4*>(gxb + static_cast<int64_t>(h) * a.W + w) =
+        *reinterpret_cast<const uint4*>(out + r * TWC + v * V::kN);
+  }
+}
+
 // the grid of a tiled launch; false if the arguments cannot be launched
 inline bool tiled_grid(Tile* a, int rows, int cols, int vec, int smem_bytes, unsigned int* grid) {
   if (a->th < 0 || a->tw < 0 || a->lanes < 0 || a->lanes > 8 || a->th > 16 || a->tw > 16 ||
@@ -729,6 +904,28 @@ int launch_row(const T* x, T* y, const int* h0, const int* h1, const float* lh, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_row_bwd(const T* g, T* gx, const int* hptr, const int* hidx, const float* hwt,
+                   const int* wptr, const int* widx, const float* wwt, const int* hspan,
+                   const int* wspan, RowBwdTile a, int C, int smem_bytes, void* stream) {
+  constexpr int kN = Vec<T>::kN;
+  if (C != 1 || a.th < 0 || a.tw < 0 || a.th > 16 || a.tw > 16 || smem_bytes <= 0 ||
+      a.pitch <= 0 || a.pitch % kN != 0 || a.W % kN != 0 || a.nnz_h < 0 || a.nnz_w < 0 ||
+      reinterpret_cast<uintptr_t>(gx) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles_h = (a.H + (1 << a.th) - 1) >> a.th;
+  a.tiles_w = (a.W / kN + (1 << a.tw) - 1) >> a.tw;
+  const int64_t blocks = static_cast<int64_t>(a.tiles_w) * a.tiles_h * a.B;
+  if (blocks <= 0 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (!raise_smem_limit(resize_row_bwd_kernel<T>, smem_bytes, &err)) return err;
+  const bool vec_in = a.OW % kN == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  resize_row_bwd_kernel<T><<<static_cast<unsigned int>(blocks), kTiledThreads, smem_bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      g, gx, hptr, hidx, hwt, wptr, widx, wwt, hspan, wspan, a, vec_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -792,6 +989,29 @@ int vaeunet_resize_row_bf16(const void* x, void* y, const int* h0, const int* h1
   return launch_row(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), h0, h1,
                     lh, w0, w1, lw, hspan, wspan, RowTile{B, H, W, OH, OW, th, tw, pitch, 0, 0}, C,
                     smem_bytes, stream);
+}
+
+// C must be 1; `tw` counts vectors (4 fp32 or 8 bf16 gx columns), `pitch`
+// elements of a staged g row.
+int vaeunet_resize_row_bwd_f32(const float* g, float* gx, const int* hptr, const int* hidx,
+                               const float* hwt, const int* wptr, const int* widx,
+                               const float* wwt, const int* hspan, const int* wspan, int B, int H,
+                               int W, int C, int OH, int OW, int th, int tw, int pitch, int nnz_h,
+                               int nnz_w, int smem_bytes, void* stream) {
+  return launch_row_bwd(g, gx, hptr, hidx, hwt, wptr, widx, wwt, hspan, wspan,
+                        RowBwdTile{B, H, W, OH, OW, th, tw, pitch, nnz_h, nnz_w, 0, 0}, C,
+                        smem_bytes, stream);
+}
+
+int vaeunet_resize_row_bwd_bf16(const void* g, void* gx, const int* hptr, const int* hidx,
+                                const float* hwt, const int* wptr, const int* widx,
+                                const float* wwt, const int* hspan, const int* wspan, int B,
+                                int H, int W, int C, int OH, int OW, int th, int tw, int pitch,
+                                int nnz_h, int nnz_w, int smem_bytes, void* stream) {
+  return launch_row_bwd(static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(gx),
+                        hptr, hidx, hwt, wptr, widx, wwt, hspan, wspan,
+                        RowBwdTile{B, H, W, OH, OW, th, tw, pitch, nnz_h, nnz_w, 0, 0}, C,
+                        smem_bytes, stream);
 }
 
 int vaeunet_resize_scalar_f32(const float* x, float* y, const int* h0, const int* h1, const float* lh,

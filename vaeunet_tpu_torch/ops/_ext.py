@@ -43,7 +43,8 @@ _U64 = ctypes.c_uint64
 _F = ctypes.c_float
 _RESIZE_ARGS = [_P] * 8 + [_I] * 6 + [_P]              # the scalar route
 _RESIZE_TILED_ARGS = [_P] * 10 + [_I] * 10 + [_P]      # + spans; tile, lanes, shared memory
-_RESIZE_BWD_TILED_ARGS = [_P] * 10 + [_I] * 12 + [_P]  # + the most pairs of a tile
+_RESIZE_BWD_TILED_ARGS = [_P] * 10 + [_I] * 12 + [_P]  # + the most pairs of a tile (row:
+                                                       # the row pitch in the lanes' place)
 _RESIZE_ROW_ARGS = [_P] * 10 + [_I] * 10 + [_P]         # + spans; tile, row pitch, shared memory
 _CONV_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _CONV_F32_ARGS = [_P] * 7 + [_I] * 8 + [_P]            # + the padded Ci and Co of the weights
@@ -55,8 +56,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_reparam": [_P, _P, _F, _P, _I64, _U64, _P],
     },
     "bn_relu": {
-        "vaeunet_bn_relu_f32": [_P, _P, _P, _P, _I64, _I, _P],
-        "vaeunet_bn_relu_bf16": [_P, _P, _P, _P, _I64, _I, _P],
+        # x, y, scale, bias, mean, var, eps, rows, C, then the plan: V, block, grid
+        "vaeunet_bn_relu_f32": [_P] * 6 + [_F, _I64] + [_I] * 6 + [_P],
+        "vaeunet_bn_relu_bf16": [_P] * 6 + [_F, _I64] + [_I] * 6 + [_P],
     },
     "resize": {
         "vaeunet_resize_f32": _RESIZE_TILED_ARGS,
@@ -65,6 +67,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_resize_row_bf16": _RESIZE_ROW_ARGS,
         "vaeunet_resize_bwd_f32": _RESIZE_BWD_TILED_ARGS,
         "vaeunet_resize_bwd_bf16": _RESIZE_BWD_TILED_ARGS,
+        "vaeunet_resize_row_bwd_f32": _RESIZE_BWD_TILED_ARGS,
+        "vaeunet_resize_row_bwd_bf16": _RESIZE_BWD_TILED_ARGS,
         "vaeunet_resize_scalar_f32": _RESIZE_ARGS,
         "vaeunet_resize_scalar_bf16": _RESIZE_ARGS,
         "vaeunet_resize_bwd_scalar_f32": _RESIZE_ARGS,
@@ -78,12 +82,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 # kernel -> launches since the last reset.  "resize" counts its wrapper's
-# launches on any route, "resize_row" those of them that took the row kernel;
+# launches on any route, "resize_row" those of them that took the row kernel,
+# and "resize_bwd" / "resize_bwd_row" the same of the gradient's wrapper;
 # "conv_bn_stats" counts its wrapper's launches of the wgmma and the fp32
 # kernels, "conv_bn_stats_fp32" those of the fp32 one, and
 # "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in "conv_bn_stats").
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
-                            "resize_row": 0, "resize_bwd": 0, "conv_bn_stats": 0,
+                            "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
+                            "conv_bn_stats": 0,
                             "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

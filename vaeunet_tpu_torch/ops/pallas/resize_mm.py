@@ -31,18 +31,24 @@ Three routes on the card, chosen from the shape alone (:func:`plan_forward`,
   many vectors to make), and is halved along the axis with the longer span
   until the block's shared memory fits ``SMEM_BUDGET`` (a downsample's
   spans are long).
-* ``row`` (forward only): C = 1, the logits resize, whose NHWC rows are
-  contiguous along W; the output row is a whole number of 16-byte vectors
-  (OW a multiple of 4 in fp32, of 8 in bf16) and both tensors start on a
-  16-byte address.  The same three stages with W in the role the channels
-  had: a block owns ``ROW_TILE`` output rows x columns, stages its source
-  span (the first column rounded down to a vector), blends W once per span
-  row into the fp32 buffer, a thread making one vector of neighbouring
-  outputs, and H from it with one 16-byte store a thread
-  (:func:`row_smem_bytes` mirrors the layout).
-* ``scalar``: every other shape (C = 3, a bf16 C = 4, an output row off a
-  vector, a tensor off a 16-byte address, the backward at C = 1) takes the
-  one-element-per-thread kernels, which read through the caches.
+* ``row``: C = 1, the logits resize, whose NHWC rows are contiguous along
+  W; the result's row is a whole number of 16-byte vectors (OW forward, W
+  backward: a multiple of 4 in fp32, of 8 in bf16) and both tensors start
+  on a 16-byte address.  The same three stages with W in the role the
+  channels had.  Forward: a block owns ``ROW_TILE`` output rows x columns,
+  stages its source span (the first column rounded down to a vector),
+  blends W once per span row into the fp32 buffer, a thread making one
+  vector of neighbouring outputs, and H from it with one 16-byte store a
+  thread (:func:`row_smem_bytes` mirrors the layout).  Backward: a block
+  owns ``ROW_BWD_TILE`` gx rows x vectors of columns, stages the g span
+  its lists name, sums H^T once per (gx row, span column) into the fp32
+  buffer, a thread making one vector of columns, then W^T from it, a
+  thread summing one column's list for four rows at once, rounded into a
+  tile that goes out 16 bytes a thread (:func:`row_bwd_smem_bytes`);
+  where the block cannot fit the card, the scalar route.
+* ``scalar``: every other shape (C = 3, a bf16 C = 4, a result row off a
+  vector, a tensor off a 16-byte address) takes the one-element-per-thread
+  kernels, which read through the caches.
 
 All routes do the same arithmetic in the same order and give the same bits.
 Outside a recorded graph (no grad mode, or an input that does not require
@@ -74,6 +80,9 @@ FORWARD_LANES = 16             # 16-byte vectors of a pixel a block takes: 256 b
 BACKWARD_TILE = (4, 16)        # input rows x columns of a block
 BACKWARD_CHANNELS = 32         # channels a block takes: its fp32 buffer is as large in bf16
 ROW_TILE = (32, 256)           # the row route: output rows x columns of a block
+# the row route's gradient: gx rows x 16-byte vectors of columns of a block (the
+# fastest of ``resize_tune --row-bwd``'s tiles at the logits' gradient in both types)
+ROW_BWD_TILE = (8, 32)
 MAX_BLOCKS = 2 ** 31 - 1       # gridDim.x
 
 
@@ -276,6 +285,19 @@ def row_smem_bytes(tile_h: int, tile_w: int, span_h: int, span_w: int, elem_size
             + 4 * span_h * tile_w)
 
 
+def row_bwd_smem_bytes(tile_h: int, tile_w: int, span_h: int, span_w: int, nnz_h: int,
+                       nnz_w: int, elem_size: int) -> int:
+    """Shared memory of one block of the row route's gradient, as
+    ``csrc/resize.cu`` lays it out: the tile's lists, the staged span of g
+    in the tensor's type, the fp32 buffer of the H^T sums (the span's
+    columns for each of the tile's rows), and the tile's gx, rounded, for
+    the 16-byte stores."""
+    tables = _round16(4 * (tile_h + 1 + tile_w + 1 + 2 * (nnz_h + nnz_w)))
+    pitch = row_pitch(span_w, elem_size)
+    return (tables + _round16(span_h * pitch * elem_size) + 4 * tile_h * pitch
+            + tile_h * tile_w * elem_size)
+
+
 def _plan_row(in_hw: Tuple[int, int], out_hw: Tuple[int, int], elem_size: int,
               align_corners: bool, batch: int, tile: Optional[Tuple[int, int]]) -> TilePlan:
     """The row route's tile: ``ROW_TILE`` (or `tile`) capped by the output,
@@ -308,6 +330,41 @@ def _plan_row(in_hw: Tuple[int, int], out_hw: Tuple[int, int], elem_size: int,
     return TilePlan("row", t[0], t[1], 0, 1, span[0], span[1], 0, 0, smem, blocks)
 
 
+def _plan_row_bwd(in_hw: Tuple[int, int], out_hw: Tuple[int, int], elem_size: int,
+                  align_corners: bool, batch: int, tile: Optional[Tuple[int, int]]) -> TilePlan:
+    """The row route's gradient: gx's tile ``ROW_BWD_TILE`` (or `tile`, in
+    rows x columns) capped by gx, its columns a power of two of vectors,
+    halved along the longer span of g until the block fits the budget.
+    Where even one row of one vector does not fit the card, the scalar
+    route (a `tile` given raises instead)."""
+    vec = VEC_BYTES // elem_size
+    fixed = tile is not None
+    t = list(tile if fixed else ROW_BWD_TILE)
+    if not fixed:
+        t = [min(t[0], _pow2_at_least(in_hw[0])),
+             vec * min(t[1], _pow2_at_least(in_hw[1] // vec))]
+
+    def sized(t):
+        sh, nh = _axis_spans(True, in_hw[0], out_hw[0], align_corners, t[0])
+        sw, nw = _axis_spans(True, in_hw[1], out_hw[1], align_corners, t[1])
+        span = (int(sh[:, 1].max()), int(sw[:, 1].max()))
+        return span, (nh, nw), row_bwd_smem_bytes(t[0], t[1], *span, nh, nw, elem_size)
+
+    span, nnz, smem = sized(t)
+    while not fixed and smem > SMEM_BUDGET and t != [1, vec]:
+        shrink = 0 if (span[0] >= span[1] and t[0] > 1) or t[1] == vec else 1
+        t[shrink] //= 2
+        span, nnz, smem = sized(t)
+    blocks = -(-in_hw[0] // t[0]) * -(-in_hw[1] // t[1]) * batch
+    if smem > SMEM_LIMIT or blocks > MAX_BLOCKS:
+        if not fixed:
+            return TilePlan("scalar")
+        raise ValueError(f"resize: a {t[0]}x{t[1]} row tile of the gradient needs {smem} bytes "
+                         f"of shared memory and {blocks} blocks, over the card's "
+                         f"{SMEM_LIMIT} and {MAX_BLOCKS}")
+    return TilePlan("row", t[0], t[1], 0, 1, span[0], span[1], nnz[0], nnz[1], smem, blocks)
+
+
 def _axis_spans(backward: bool, in_size: int, out_size: int, align_corners: bool, tile: int):
     if backward:
         ptr, idx, _ = transpose_table(in_size, out_size, align_corners)
@@ -320,8 +377,9 @@ def _axis_spans(backward: bool, in_size: int, out_size: int, align_corners: bool
 def _plan(backward: bool, in_hw: Tuple[int, int], out_hw: Tuple[int, int], channels: int,
           elem_size: int, align_corners: bool, batch: int,
           tile: Optional[Tuple[int, int]], lanes: Optional[int]) -> TilePlan:
-    if channels == 1 and not backward and (out_hw[1] * elem_size) % VEC_BYTES == 0:
-        return _plan_row(in_hw, out_hw, elem_size, align_corners, batch, tile)
+    if channels == 1 and ((in_hw if backward else out_hw)[1] * elem_size) % VEC_BYTES == 0:
+        planner = _plan_row_bwd if backward else _plan_row
+        return planner(in_hw, out_hw, elem_size, align_corners, batch, tile)
     if (channels * elem_size) % VEC_BYTES:
         return TilePlan("scalar")
     vecs = channels * elem_size // VEC_BYTES
@@ -423,10 +481,12 @@ def _launch_setup(backward: bool, shape: Tuple[int, int, int, int], out_hw: Tupl
         keep += [_device_spans(backward, h, oh, align_corners, plan.tile_h, dev),
                  _device_spans(backward, w, ow, align_corners, plan.tile_w, dev)]
         if plan.route == "row":
-            name += "_row"
+            name = "vaeunet_resize_row_bwd" if backward else "vaeunet_resize_row"
             vec = VEC_BYTES // elem_size
             tail = (plan.tile_h.bit_length() - 1, (plan.tile_w // vec).bit_length() - 1,
                     row_pitch(plan.span_w, elem_size))
+            if backward:
+                tail += (plan.nnz_h, plan.nnz_w)
         else:
             tail = (plan.tile_h.bit_length() - 1, plan.tile_w.bit_length() - 1,
                     plan.lanes.bit_length() - 1)
@@ -498,6 +558,8 @@ def resize_backward(g: torch.Tensor, in_hw: Tuple[int, int],
     fn, args = launch_args(g, gx, align_corners, backward=True)
     _ext.call("resize", fn, g.device, *args)
     _ext.count_launch("resize_bwd")
+    if "_row_" in fn:
+        _ext.count_launch("resize_bwd_row")
     return gx
 
 

@@ -177,7 +177,8 @@ FAMILIES = (
                                             "conv3x3_stats_wgmma_kernel",
                                             "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
-    ("resize_bwd (this port's kernel)", ("resize_bwd_tiled_kernel", "resize_bilinear_bwd_kernel")),
+    ("resize_bwd (this port's kernel)", ("resize_bwd_tiled_kernel", "resize_row_bwd_kernel",
+                                         "resize_bilinear_bwd_kernel")),
     ("resize", ("resize_tiled_kernel", "resize_row_kernel", "resize_bilinear_kernel")),
     ("normal/reparam", ("normal_kernel", "reparam_kernel")),
     ("optimizer (foreach AdamW, clip)", ("multi_tensor_apply", "adam")),

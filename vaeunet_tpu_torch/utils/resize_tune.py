@@ -1,6 +1,6 @@
 """Time the tiled and row resize kernels over tiles and lanes on the card.
 
-    python -m vaeunet_tpu_torch.utils.resize_tune [--quick] [--row]
+    python -m vaeunet_tpu_torch.utils.resize_tune [--quick] [--row] [--row-bwd]
 
 New in the port: the numbers behind the tile rule of
 ``ops/pallas/resize_mm.py`` (``FORWARD_TILE``, ``FORWARD_LANES``,
@@ -13,7 +13,10 @@ launch alone on prepared tensors) beside the one-element-per-thread kernel's
 and the bytes bound.  For the logits resize (C = 1, 256^2 -> 512^2) it
 sweeps the row route's tile (output rows x columns) the same way, beside
 the scalar kernel and ``F.interpolate``; ``--row`` runs only that sweep.
-Needs a CUDA card.
+``--row-bwd`` sweeps the row route's gradient at the same resize (gx rows x
+columns, ``ROW_BWD_TILE``), each tile's device time from a CUDA graph,
+beside the scalar kernel and ``upsample_bilinear2d_backward``, and runs
+only that.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ BACKWARD_TILES = ((4, 8), (8, 4), (8, 8), (2, 8), (2, 16), (2, 32), (4, 4), (4, 
                   (8, 16), (16, 8), (16, 16))
 LANES = (2, 4, 8, 16, 32)
 ROW_TILES = tuple(itertools.product((2, 4, 8, 16, 32), (32, 64, 128, 256, 512)))
+ROW_BWD_TILES = tuple(itertools.product((1, 2, 4, 8, 16, 32), (32, 64, 128, 256)))
 # (batch, type) of the logits resize: the request's, the bf16 step's, the fp32 step's
 ROW_CASES = ((8, torch.float32), (16, torch.bfloat16), (16, torch.float32))
 
@@ -193,6 +197,47 @@ def sweep_row(batch: int, dtype: torch.dtype, size: int, quick: bool) -> None:
           + "  ".join(f"{k} {host_us(fn):.1f} us" for k, fn in parts.items()))
 
 
+def sweep_row_bwd(batch: int, dtype: torch.dtype, size: int, quick: bool) -> None:
+    """The row route's gradient tiles at g [batch, 1, 2 size, 2 size] ->
+    gx [batch, 1, size, size], align_corners=True (the logits' gradient);
+    each tile held bit for bit against the scalar kernel."""
+    g = torch.Generator(device="cuda").manual_seed(size)
+    gy = torch.randn((batch, 1, 2 * size, 2 * size), device="cuda", generator=g).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    gx = torch.empty((batch, 1, size, size), device="cuda", dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    nbytes = (gy.numel() + gx.numel()) * gy.element_size()
+    hw = ((size, size), (2 * size, 2 * size))
+    rule = resize_mm.plan_backward(*hw, 1, gy.element_size(), True, batch)
+    check(rule.route == "row", f"the rule sends the C = 1 gradient to {rule.route}")
+    launcher(gy, gx, True, scalar=True)()
+    want = gx.clone()
+
+    def library():
+        return torch.ops.aten.upsample_bilinear2d_backward(gy, list(hw[1]), list(gx.shape),
+                                                           True, None, None)
+    rows = [("scalar", device_ms(launcher(gy, gx, True, scalar=True)), 0),
+            ("upsample_bilinear2d_backward", device_ms(library), 0)]
+    for tile in ((rule.tile_h, rule.tile_w),) if quick else ROW_BWD_TILES:
+        try:
+            plan = resize_mm.plan_backward(*hw, 1, gy.element_size(), True, batch, tile)
+        except ValueError:      # over the card's shared memory
+            continue
+        gx.zero_()
+        fn = launcher(gy, gx, True, plan)
+        fn()
+        check(torch.equal(gx, want), f"row gradient tile {tile} differs from the scalar kernel")
+        mark = " <- rule" if plan[:3] == rule[:3] else ""
+        rows.append((f"row {tile[0]}x{tile[1]}{mark}", device_ms(fn), plan.smem_bytes))
+    print(f"bwd {str(dtype)[6:]} {list(gx.shape)}<-{2 * size}^2: {nbytes / 1e6:.1f} MB, "
+          f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (device time, a CUDA graph of 50 "
+          f"launches replayed)")
+    best = min(r[1] for r in rows[2:])
+    for name, ms, smem in rows:
+        print(f"    {name:30s} {ms:8.4f} ms  {nbytes / ms / 1e9:6.3f} TB/s  smem {smem:6d}"
+              f"{'  *' if ms == best else ''}")
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -204,6 +249,8 @@ def main() -> None:
                         help="only the rule's tile at each shape (every lane count)")
     parser.add_argument("--row", action="store_true",
                         help="only the row route's sweep at the logits resize")
+    parser.add_argument("--row-bwd", action="store_true",
+                        help="only the row route's gradient sweep at the logits resize")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("resize_tune: no CUDA device is available")
@@ -213,6 +260,10 @@ def main() -> None:
     for line in _ext.build(["resize"])["resize"]["ptxas"]:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  {line.strip()}")
+    if args.row_bwd:
+        for batch, dtype in ROW_CASES[1:]:
+            sweep_row_bwd(batch, dtype, 256, args.quick)
+        return
     for batch, dtype in ROW_CASES:
         sweep_row(batch, dtype, 256, args.quick)
     if args.row:
