@@ -105,7 +105,21 @@ the card, in phases that each fail the run with a non-zero exit:
    steps each (every parameter moved and finite, launches held);
    ``time_fn``, ``trace`` and ``track_memory`` once each on the masked
    step; ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
-   --pretrained-encoder`` starting from its encoder bit for bit.
+   --pretrained-encoder`` starting from its encoder bit for bit;
+17. the ensemble protocol's tools, the offline sweep and the benchmark
+   entry points, on phase 13's tree (its val split and phase 14's test
+   split, 2 fundi each): ``cli.member_maps`` with phase 13's run dir at
+   scale 0.5 and phase 14's .pth of the same weights at 1.0 with the h-flip
+   (N=10, T=1, tiles 512) on both splits, every file present and finite,
+   mom[0] / N the map within 1e-6, a second call writing nothing, the
+   launches held; one fundus at 0.25 and T = 0 on the card against the CPU
+   (atol 2e-4; its launches held); ``cli.tune_fusion`` greedy on the val
+   maps and its point frozen onto the test maps (finite CSV rows);
+   ``cli.scale_ensemble`` of the two members with the 7-column CSV and the
+   11-weight mixing sweep (launches held); ``cli.sweep``, 2 one-epoch
+   trials, both ``ok``; ``cli.bench`` and ``cli.bench_tiled`` at their
+   defaults, their JSON lines printed and their launches held.  Each
+   stage's time is printed beside the card's name and power limit.
 
 Phase 3 also holds the conv kernel in both types at every conv shape of the
 paths of phases 10 and 11 that the resnet34 step lacks (bf16 timed, with
@@ -151,10 +165,16 @@ from PIL import Image
 
 from vaeunet_tpu_torch import build_model, native, predict_image, segmentation_distribution
 from vaeunet_tpu_torch.cli import analyze as analyze_cli
+from vaeunet_tpu_torch.cli import bench as bench_cli
+from vaeunet_tpu_torch.cli import bench_tiled as bench_tiled_cli
 from vaeunet_tpu_torch.cli import evaluate as evaluate_cli
+from vaeunet_tpu_torch.cli import member_maps as member_maps_cli
 from vaeunet_tpu_torch.cli import predict as predict_cli
 from vaeunet_tpu_torch.cli import pretrain as pretrain_cli
+from vaeunet_tpu_torch.cli import scale_ensemble as scale_ensemble_cli
+from vaeunet_tpu_torch.cli import sweep as sweep_cli
 from vaeunet_tpu_torch.cli import train as train_cli
+from vaeunet_tpu_torch.cli import tune_fusion as tune_fusion_cli
 from vaeunet_tpu_torch.cli import visualize as visualize_cli
 from vaeunet_tpu_torch.compat import load_model
 from vaeunet_tpu_torch.data import IDRIDDataset, augment
@@ -2667,6 +2687,227 @@ def phase_pretrain(root: Path) -> dict:
     return total
 
 
+# ----- phase 17 ------------------------------------------------------------
+
+# the members of the ensemble tools: phase 13's run dir at scale 0.5 and
+# phase 14's .pth of the same weights at 1.0 with the h-flip
+ENSEMBLE_SPLITS = ("val", "test")
+T0_SCALE, T0_SAMPLES = 0.25, 2      # the card-against-CPU map (T = 0: the samples agree)
+SWEEP_SEED = 31                     # its first two trials: batch 2, scale 0.25, patch 256
+SWEEP_TRIALS, SWEEP_IMAGES = 2, 2
+
+
+def resize_launches(in_hw, out_hw, batch: int) -> dict:
+    """One fp32 C = 1 resize to the ground truth (align_corners=False): the
+    row kernel where ``resize_mm.plan_forward`` routes it there."""
+    row = resize_mm.plan_forward(in_hw, out_hw, 1, 4, False, batch).route == "row"
+    return launches(resize=1, resize_row=int(row))
+
+
+def member_image_launches(hw, gt_hw, samples: int = N_SAMPLES) -> dict:
+    """One member-image of ``cli.member_maps``: the tiled request at the
+    adaptive overlap, and the samples' resize to the ground truth."""
+    request = request_launches(hw, TILE_BATCH, samples, overlap=adaptive_overlap(PATCH))
+    if tuple(hw) == tuple(gt_hw):
+        return request
+    return add_counts(request, resize_launches(hw, gt_hw, samples))
+
+
+def scale_member_launches(hw, gt_hw) -> dict:
+    """One member-image of ``cli.scale_ensemble``: as ``cli.member_maps``'s,
+    and off the ground truth's size one resize more (the mean's)."""
+    own = member_image_launches(hw, gt_hw)
+    return own if tuple(hw) == tuple(gt_hw) else add_counts(own, resize_launches(hw, gt_hw, 1))
+
+
+def finite_csv(path: Path, rows: int) -> pd.DataFrame:
+    csv = pd.read_csv(path)
+    columns = ["img_id", "dice", "ece", "sparsification_error", "uncertainty_error_dice",
+               "error_auroc", "error_auprc"]
+    check(list(csv.columns) == columns and len(csv) == rows,
+          f"{path}: {len(csv)} rows, columns {list(csv.columns)}")
+    check(bool(np.isfinite(csv[columns[1:]].to_numpy(dtype=np.float64)).all()),
+          f"{path}: non-finite values")
+    return csv
+
+
+def phase_ensemble_tools(root: Path) -> dict:
+    """The ensemble protocol's tools, the offline sweep and the two benchmark
+    entry points on phase 13's tree (its val split and phase 14's test
+    split, 2 fundi each at 2848x4288): ``cli.member_maps`` with phase 13's
+    run dir at 0.5 and phase 14's .pth of the same weights at 1.0 with the
+    h-flip, N=10, T=1, tiles 512, on both splits (files present and
+    finite, mom[0] / N the map, a second call writes nothing, launches
+    held), one fundus at 0.25 and T = 0 on the card against the CPU (atol
+    2e-4, its launches held); ``cli.tune_fusion`` greedy on the val maps and
+    its point frozen onto the test maps; ``cli.scale_ensemble`` of the two
+    members with the CSV (launches held, 11 mixing weights); ``cli.sweep``,
+    2 one-epoch trials; ``cli.bench`` and ``cli.bench_tiled`` at their
+    defaults (launches held).  -> the phase's launch counts."""
+    os.environ["WANDB_MODE"] = "disabled"
+    os.environ["VAEUNET_CACHE_DIR"] = str(root / "cache")
+    use_fp32_numerics()
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    total = launches()
+    data = root / "idrid"
+    run_dir = loop_config(root).checkpoint_path()
+    pth = root / "flagship.pth"                     # phase 14's, the run dir's weights
+    check(pth.is_file(), f"{pth} is missing")
+    members = [f"run={run_dir}@0.5", f"pth={pth}@1.0:h"]
+    maps = root / "maps"
+
+    # 1. member maps on both splits
+    for split in ENSEMBLE_SPLITS:
+        report: dict = {}
+        args = ["--member", members[0], "--member", members[1], "--lesion-type", "EX",
+                "--split", split, "--outdir", str(maps / split), "--data-dir", str(data),
+                "--samples", str(N_SAMPLES), "--temperature", str(TEMPERATURE),
+                "--patch-size", str(PATCH)]
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = member_maps_cli.main(args, report=report)
+        maps_s = time.perf_counter() - t0
+        expected = add_counts(*(member_image_launches(m["hw"], m["gt_hw"])
+                                for m in report["maps"]))
+        total = add_counts(total, step_counts(f"member maps ({split})", expected, smi))
+        for m in report["maps"]:
+            log(f"member map {split} {m['label']} {m['img_id']} ({m['hw'][0]}x{m['hw'][1]} -> "
+                f"{m['gt_hw'][0]}x{m['gt_hw'][1]}, N={N_SAMPLES}, tiles {PATCH}/"
+                f"{adaptive_overlap(PATCH)}): {m['seconds']:.3f} s request to saved map  "
+                f"[{smi}]")
+        log(f"member maps ({split}): {len(out['written'])} maps in {maps_s:.1f} s  [{smi}]")
+        check(len(out["written"]) == 2 * 2 and not out["skipped"], f"maps written {out}")
+        for gt_file in sorted((maps / split).glob("gt_*.npy")):
+            img = gt_file.stem[3:]
+            gt = np.load(gt_file)
+            for label in ("run", "pth"):
+                prob = np.load(maps / split / f"{label}_{img}.npy")
+                mom = np.load(maps / split / f"{label}_{img}_mom.npy")
+                check(prob.shape == gt.shape == mom.shape[1:] and mom.shape[0] == 2,
+                      f"{label} {img}: map {prob.shape}, mom {mom.shape}, gt {gt.shape}")
+                check(bool(np.isfinite(prob).all() and np.isfinite(mom).all()),
+                      f"{label} {img}: non-finite map")
+                err = float(np.abs(mom[0] / N_SAMPLES - prob).max())
+                check(err <= 1e-6, f"{label} {img}: mom[0] / N differs from the map by {err}")
+        before = {p.name: p.stat().st_mtime_ns for p in (maps / split).iterdir()}
+        _ext.reset_launch_counts()
+        again = member_maps_cli.main(args)
+        check(again["written"] == [] and len(again["skipped"]) == 4, f"second call {again}")
+        check({p.name: p.stat().st_mtime_ns for p in (maps / split).iterdir()} == before,
+              "the second member-maps call wrote a file")
+        step_counts(f"member maps ({split}, resumed)", launches(), smi)
+
+    # 2. one member-image at T = 0: the card against the CPU
+    t0_maps = {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        report = {}
+        _ext.reset_launch_counts()
+        t0 = time.perf_counter()
+        member_maps_cli.main(["--member", f"t0={run_dir}@{T0_SCALE}", "--lesion-type", "EX",
+                              "--split", "val", "--outdir", str(root / f"maps_t0_{where}"),
+                              "--data-dir", str(data), "--samples", str(T0_SAMPLES),
+                              "--temperature", "0", "--patch-size", str(PATCH),
+                              "--images", "IDRiD_00", "--device", device], report=report)
+        [m] = report["maps"]
+        if where == "card":
+            total = add_counts(total, step_counts(
+                "one member-image", member_image_launches(m["hw"], m["gt_hw"], T0_SAMPLES), smi))
+        t0_maps[where] = np.load(root / f"maps_t0_{where}" / "t0_IDRiD_00.npy")
+        log(f"member map at T = 0 on the {where} ({m['hw'][0]}x{m['hw'][1]} -> "
+            f"{m['gt_hw'][0]}x{m['gt_hw'][1]}, N={T0_SAMPLES}): "
+            f"{time.perf_counter() - t0:.1f} s  [{smi}]")
+    err = float(np.abs(t0_maps["card"] - t0_maps["host"]).max())
+    log(f"member map at T = 0, card against CPU: max |diff| {err:.3g} (limit 2e-4)")
+    check(err <= 2e-4, f"the card's T = 0 map differs from the CPU's by {err} > 2e-4")
+
+    # 3. tuning on val, the point frozen onto test
+    t0 = time.perf_counter()
+    tuned = tune_fusion_cli.main(["--val-dir", str(maps / "val"), "--test-dir",
+                                  str(maps / "test"), "--output-dir", str(root / "tuned"),
+                                  "--samples-per-member", str(N_SAMPLES), "--cache-maps"])
+    tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frozen = tune_fusion_cli.main(["--val-dir", str(maps / "val"), "--test-dir",
+                                   str(maps / "test"), "--output-dir", str(root / "frozen"),
+                                   "--samples-per-member", str(N_SAMPLES), "--point-json",
+                                   str(root / "tuned" / "operating_point.json")])
+    frozen_s = time.perf_counter() - t0
+    finite_csv(frozen["csv"], 2)
+    log(f"tune_fusion greedy on val + apply to test: {tune_s:.1f} s, point "
+        f"{json.dumps(tuned['point'])}; the frozen point on test: {frozen_s:.1f} s, mean Dice "
+        f"{frozen['mean_dice']:.4f}  [{smi}]")
+    check(frozen["point"] == tuned["point"] and frozen["rows"] == tuned["rows"],
+          "the frozen point's CSV differs from the tuning run's")
+
+    # 4. the scale ensemble with the CSV
+    report = {}
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    ens = scale_ensemble_cli.main([
+        "--member", f"{run_dir}@0.5", "--member", f"{pth}@1.0", "--lesion-type", "EX",
+        "--data-dir", str(data), "--samples", str(N_SAMPLES), "--patch-size", str(PATCH),
+        "--output-dir", str(root / "scale_ensemble")], report=report)
+    ens_s = time.perf_counter() - t0
+    expected = add_counts(*(scale_member_launches(r["hw"], r["gt_hw"])
+                            for r in report["requests"]))
+    total = add_counts(total, step_counts("scale ensemble", expected, smi))
+    finite_csv(ens["csv"], 2)
+    for r in report["requests"]:
+        log(f"scale ensemble {r['img_id']} ({r['hw'][0]}x{r['hw'][1]} -> {r['gt_hw'][0]}x"
+            f"{r['gt_hw'][1]}): request and resizes {r['seconds']:.3f} s  [{smi}]")
+    log(f"scale ensemble: {ens_s:.1f} s, fused Dice {ens['fused_dice']}, mixing sweep "
+        f"{ {k: [round(d, 3) for d in v] for k, v in ens['pair'].items()} }  [{smi}]")
+    check(len(ens["pair"]) == 2 and all(len(v) == 11 for v in ens["pair"].values()),
+          f"mixing sweep {ens['pair']}")
+
+    # 5. the offline sweep
+    (root / "sweep").mkdir()
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    with in_dir(root / "sweep"):                     # ./runs, ./checkpoints, the results
+        results = sweep_cli.main(["--trials", str(SWEEP_TRIALS), "--data-dir", str(data),
+                                  "--max-epochs", "1", "--max-images", str(SWEEP_IMAGES),
+                                  "--seed", str(SWEEP_SEED)])
+    sweep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _ext.launch_counts()
+    total = add_counts(total, counts)
+    records = [json.loads(ln) for ln in
+               (root / "sweep" / "sweep_results.jsonl").read_text().splitlines()]
+    for rec in records:
+        log(f"sweep trial {rec['trial']}: {json.dumps(rec)}  [{smi}]")
+    log(f"sweep: {SWEEP_TRIALS} trials in {sweep_s:.1f} s, launches {counts}  [{smi}]")
+    check(len(records) == len(results) == SWEEP_TRIALS
+          and all(r["status"] == "ok" for r in records), f"sweep records {records}")
+    for k in ("conv_bn_stats", "resize_bwd", "normal", "bn_relu"):
+        check(counts[k] > 0, f"the sweep's training launched no {k}")
+
+    # 6. the two benchmark entry points at their defaults
+    report = {}
+    _ext.reset_launch_counts()
+    line = bench_cli.main([], report=report)
+    total = add_counts(total, step_counts(
+        "bench", expected_train_launches(bench_cli.WARMUP + bench_cli.STEPS), smi))
+    log(f"bench: {json.dumps(line)}; step p50 {statistics.median(report['step_s']):.4f} s  "
+        f"[{smi}]")
+    check(line["value"] > 0 and all(v == v for v in report["loss"]), f"bench {line}")
+    report = {}
+    _ext.reset_launch_counts()
+    line = bench_tiled_cli.main([], report=report)
+    hw = (bench_tiled_cli.H, bench_tiled_cli.W)
+    per_run = tiled_decodes(hw, bench_tiled_cli.TILE_BATCH, 1, adaptive_overlap(PATCH))
+    total = add_counts(total, step_counts(
+        "bench_tiled", add_counts(*[per_run] * (1 + bench_tiled_cli.RUNS)), smi))
+    log(f"bench_tiled: {json.dumps(line)}; all {[round(t, 4) for t in report['latency_s']]} s  "
+        f"[{smi}]")
+    check(line["tiles"] == len(compute_tile_grid(*hw, PATCH)) and line["value"] > 0,
+          f"bench_tiled {line}")
+    torch.cuda.empty_cache()
+    log(f"ensemble tools, sweep and bench phase: {time.perf_counter() - t_phase:.1f} s  [{smi}]")
+    return total
+
+
 KERNELS = (
     ("normal", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:54"),
     ("reparam", "vaeunet_tpu_torch/csrc/reparam.cu", "vaeunet_tpu/ops/pallas/reparam.py:87"),
@@ -2730,6 +2971,8 @@ def main() -> None:
         log(f"phase 15: {time.perf_counter() - t_start:.1f} s")
         path_counts.append(phase_pretrain(Path(tmp)))
         log(f"phase 16: {time.perf_counter() - t_start:.1f} s")
+        path_counts.append(phase_ensemble_tools(Path(tmp)))
+        log(f"phase 17: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, source, replaces in KERNELS:
         rec = table[name]

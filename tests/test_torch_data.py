@@ -4,6 +4,8 @@
 must be equal, bit for bit: the port's host code is a copy of the same
 numpy / PIL / cv2 code."""
 
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +19,7 @@ from vaeunet_tpu.data.loader import Loader as JaxLoader
 
 from vaeunet_tpu_torch import native
 from vaeunet_tpu_torch.data import BasicDataset, IDRIDDataset, Loader
-from vaeunet_tpu_torch.data.dataset import _resize_bilinear_np
+from vaeunet_tpu_torch.data.dataset import _resize_bilinear_np, _write_atomic
 
 
 @pytest.fixture(scope="module")
@@ -113,6 +115,50 @@ def test_cache_is_reused_and_keyed_apart_from_jax(synth_data, tmp_path, monkeypa
     monkeypatch.setenv("VAEUNET_CACHE_DIR", str(tmp_path / "env"))
     d = IDRIDDataset(str(synth_data), split="val", scale=1.0, patch_size=32)
     assert str(d.cache_dir).startswith(str(tmp_path / "env"))
+
+
+def test_cache_write_is_all_or_nothing(tmp_path):
+    """A write that fails half-way leaves the old file whole and no
+    temporary file behind."""
+    path = tmp_path / "meta.json"
+    path.write_bytes(b"old")
+
+    def half(f):
+        f.write(b"new, half")
+        raise OSError("disk full")
+
+    with pytest.raises(OSError):
+        _write_atomic(path, half)
+    assert path.read_bytes() == b"old" and sorted(tmp_path.iterdir()) == [path]
+    _write_atomic(path, lambda f: f.write(b"new"))
+    assert path.read_bytes() == b"new" and sorted(tmp_path.iterdir()) == [path]
+
+
+def test_concurrent_builds_of_one_cache_all_succeed(synth_data, tmp_path):
+    """Data-parallel ranks build the same cache at once, one a little after
+    the other: each must read whole files (a reader met a half-written
+    ``.npz`` when the files were written in place)."""
+    rng = np.random.RandomState(0)
+    for r in range(40):
+        out = []
+
+        def build(delay):
+            time.sleep(delay)
+            try:
+                ds = IDRIDDataset(str(synth_data), split="val", scale=1.0, patch_size=32,
+                                  cache_dir=str(tmp_path / f"c{r}"))
+                out.append(ds.patch_index)
+            except Exception as e:       # noqa: BLE001 - any failure is the finding
+                out.append(e)
+
+        threads = [threading.Thread(target=build, args=(d,))
+                   for d in (0.0, *rng.uniform(0, 0.03, 3))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads) and len(out) == len(threads)
+        assert all(o == out[0] for o in out) and not isinstance(out[0], Exception), (r, out)
 
 
 @pytest.mark.parametrize("split", ["train", "val"])

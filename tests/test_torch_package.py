@@ -47,9 +47,15 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "vaeunet_tpu_torch.parallel, vaeunet_tpu_torch.parallel.mesh, "
             "vaeunet_tpu_torch.parallel.dp, vaeunet_tpu_torch.parallel.tp, "
             "vaeunet_tpu_torch.parallel.inference, vaeunet_tpu_torch.ops.collectives, "
-            "vaeunet_tpu_torch.training.pretrain, vaeunet_tpu_torch.cli.pretrain; "
-            "from vaeunet_tpu_torch.cli import analyze, visualize, evaluate, predict, pretrain; "
-            "[m.get_parser() for m in (analyze, visualize, evaluate, predict, pretrain)]; "
+            "vaeunet_tpu_torch.training.pretrain, vaeunet_tpu_torch.cli.pretrain, "
+            "vaeunet_tpu_torch.cli.member_maps, vaeunet_tpu_torch.cli.tune_fusion, "
+            "vaeunet_tpu_torch.cli.scale_ensemble, vaeunet_tpu_torch.cli.sweep, "
+            "vaeunet_tpu_torch.cli.bench, vaeunet_tpu_torch.cli.bench_tiled, "
+            "vaeunet_tpu_torch.compat.jax_weights; "
+            "from vaeunet_tpu_torch.cli import analyze, visualize, evaluate, predict, pretrain, "
+            "member_maps, tune_fusion, scale_ensemble, sweep, bench, bench_tiled; "
+            "[m.get_parser() for m in (analyze, visualize, evaluate, predict, pretrain, "
+            "member_maps, tune_fusion, scale_ensemble, sweep, bench, bench_tiled)]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'vaeunet_tpu' or m.startswith('vaeunet_tpu.') or m == 'flax'); "
             "print(bad)")

@@ -5,7 +5,7 @@ A copy of ``vaeunet_tpu/data/dataset.py``; its default cache home is
 cache files, and ``gather_batch`` goes through the port's ``native``.
 
 Rebuild of reference ``utils/data_loading.py`` (IDRIDDataset) with the same
-observable behavior and two deliberate fixes:
+observable behavior and three deliberate fixes:
 
 - **Deterministic, reusable cache.** The reference deletes and rebuilds its
   patch cache on every construction (data_loading.py:96-100, SURVEY.md
@@ -13,6 +13,10 @@ observable behavior and two deliberate fixes:
   ``<base>/patches_tpu/<key>/`` keyed by the preprocessing config, and
   patches are *views* into them (the reference writes every 50%-overlap
   patch to disk separately — 2-4x redundant IO).
+- **Atomic cache files.** Every cache file is written under a temporary
+  name and renamed into place (``_write_atomic``), so processes that build
+  the same cache at once (data-parallel ranks) never read a file another is
+  still writing; each sees a whole file, and equal builds write equal bytes.
 - **uint8 storage.** PIL resize returns uint8; the /255 float conversion
   (data_loading.py:599) happens at batch-assembly time, so the cache is 4x
   smaller with bit-identical results.  (Full-image mode caches float32, as
@@ -36,6 +40,7 @@ import json
 import logging
 import os
 import random
+import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -45,6 +50,20 @@ from PIL import Image
 from vaeunet_tpu_torch.data.fundus import crop_square_bounds, detect_fundus
 
 log = logging.getLogger(__name__)
+
+
+def _write_atomic(path: Path, write) -> None:
+    """``write(f)`` into a fresh file beside ``path``, then rename it to
+    ``path``: a reader sees the old file or the whole new one, never part of
+    one, whichever process or thread writes."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".tmp.{path.name}.")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def load_image(filename) -> Image.Image:
@@ -249,20 +268,20 @@ class IDRIDDataset:
                 if ci.shape[0] != self.patch_size:
                     ci = _resize_bilinear_np(ci, (self.patch_size, self.patch_size))
                     cm = _resize_nearest_np(cm, (self.patch_size, self.patch_size))
-                np.savez(self.cache_dir / f"{img_id}.npz",
-                         image_f32=ci.astype(np.float32),
-                         mask=(cm > 0.5).astype(np.uint8))
+                _write_atomic(self.cache_dir / f"{img_id}.npz",
+                              lambda f: np.savez(f, image_f32=ci.astype(np.float32),
+                                                 mask=(cm > 0.5).astype(np.uint8)))
                 meta[img_id] = {"h": int(ci.shape[0]), "w": int(ci.shape[1]),
                                 "full": True,
                                 "has_lesion": bool((mask_arr > 0.5).any())}
             else:
-                np.savez(self.cache_dir / f"{img_id}.npz",
-                         image_u8=img_arr,
-                         mask=(mask_arr > 0.5).astype(np.uint8))
+                _write_atomic(self.cache_dir / f"{img_id}.npz",
+                              lambda f: np.savez(f, image_u8=img_arr,
+                                                 mask=(mask_arr > 0.5).astype(np.uint8)))
                 meta[img_id] = {"h": int(img_arr.shape[0]),
                                 "w": int(img_arr.shape[1]), "full": False}
         self.meta = meta
-        meta_path.write_text(json.dumps(meta))
+        _write_atomic(meta_path, lambda f: f.write(json.dumps(meta).encode()))
 
     # -- patch index ---------------------------------------------------------
 
@@ -335,8 +354,8 @@ class IDRIDDataset:
 
         if not self.is_full_image:
             try:
-                index_path.write_text(json.dumps(
-                    {"positives": positives, "negatives": negatives}))
+                _write_atomic(index_path, lambda f: f.write(json.dumps(
+                    {"positives": positives, "negatives": negatives}).encode()))
             except OSError as e:  # read-only cache is non-fatal
                 log.warning("Couldn't persist patch index: %s", e)
         self._finalize_index(positives, negatives, records)
