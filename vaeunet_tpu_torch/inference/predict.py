@@ -12,6 +12,12 @@
 
 Images are NHWC at these functions ([H,W,C] or [B,H,W,C]); maps come back
 NHWC.  Every entry point runs on CUDA unless called with ``device="cpu"``.
+
+``segmentation_distribution`` records the span ``serve.distribution``, with
+``serve.latent`` (the whole-image encode and the draw) and the tiled
+request's spans (``inference/tiled.py``) inside it, and ``uncertainty_maps``
+the span ``serve.maps`` (``utils/profiling.py``; only while a
+``torch.profiler`` session runs).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from vaeunet_tpu_torch.device import as_image, check_serving_model, resolve_devi
 from vaeunet_tpu_torch.inference.tiled import predict_tiled_ensemble
 from vaeunet_tpu_torch.models.unet import UNet
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet
+from vaeunet_tpu_torch.utils.profiling import span
 from vaeunet_tpu_torch.vae_utils import sample_latents, to_nchw, to_nhwc
 
 
@@ -85,27 +92,29 @@ def segmentation_distribution(model: UNetResNet, image,
     overrides the adaptive tile overlap.  `eps` [N,1,D] replaces the noise
     draw (a test hook); otherwise the latents come from `generator`.
     """
-    device = resolve_device(device)
-    check_serving_model(model, device)
-    image = as_image(image, device)
-    h, w = image.shape[0], image.shape[1]
-    x = to_nchw(image[None])
-    tiled = patch_size is not None and (h > patch_size or w > patch_size)
-    if tiled:
-        mu, logvar = model.encode(x)
-    else:
-        mu, logvar, features = model.encode_with_features(x)
-    zs = sample_latents(mu, logvar, generator, temperature, num_samples, eps=eps)[:, 0]
+    with span("serve.distribution"):
+        device = resolve_device(device)
+        check_serving_model(model, device)
+        image = as_image(image, device)
+        h, w = image.shape[0], image.shape[1]
+        x = to_nchw(image[None])
+        tiled = patch_size is not None and (h > patch_size or w > patch_size)
+        with span("serve.latent"):
+            if tiled:
+                mu, logvar = model.encode(x)
+            else:
+                mu, logvar, features = model.encode_with_features(x)
+            zs = sample_latents(mu, logvar, generator, temperature, num_samples, eps=eps)[:, 0]
 
-    if tiled:
-        samples = predict_tiled_ensemble(model, image, zs, patch_size, overlap=overlap,
-                                         batch_size=tile_batch, device=device)
-    else:
-        samples = torch.stack([
-            to_nhwc(torch.sigmoid(
-                model.decode_features(z[None], features, output_hw=(h, w)).float()))[0]
-            for z in zs])
-    return samples, mu[0], logvar[0]
+        if tiled:
+            samples = predict_tiled_ensemble(model, image, zs, patch_size, overlap=overlap,
+                                             batch_size=tile_batch, device=device)
+        else:
+            samples = torch.stack([
+                to_nhwc(torch.sigmoid(
+                    model.decode_features(z[None], features, output_hw=(h, w)).float()))[0]
+                for z in zs])
+        return samples, mu[0], logvar[0]
 
 
 def uncertainty_maps(samples: torch.Tensor, eps: float = 1e-8) -> Dict[str, torch.Tensor]:
@@ -118,19 +127,20 @@ def uncertainty_maps(samples: torch.Tensor, eps: float = 1e-8) -> Dict[str, torc
     cv          = std / (mean + eps)
     std is the population std (ddof 0), as ``jnp.std``.
     """
-    mean = samples.mean(dim=0)
-    std = samples.std(dim=0, correction=0)
+    with span("serve.maps"):
+        mean = samples.mean(dim=0)
+        std = samples.std(dim=0, correction=0)
 
-    def binary_entropy(p):
-        p = torch.clamp(p, eps, 1 - eps)
-        return -(p * torch.log(p) + (1 - p) * torch.log(1 - p))
+        def binary_entropy(p):
+            p = torch.clamp(p, eps, 1 - eps)
+            return -(p * torch.log(p) + (1 - p) * torch.log(1 - p))
 
-    entropy = binary_entropy(mean)
-    exp_entropy = binary_entropy(samples).mean(dim=0)
-    return {
-        "mean": mean,
-        "std": std,
-        "entropy": entropy,
-        "mutual_info": entropy - exp_entropy,
-        "cv": std / (mean + eps),
-    }
+        entropy = binary_entropy(mean)
+        exp_entropy = binary_entropy(samples).mean(dim=0)
+        return {
+            "mean": mean,
+            "std": std,
+            "entropy": entropy,
+            "mutual_info": entropy - exp_entropy,
+            "cv": std / (mean + eps),
+        }

@@ -12,6 +12,13 @@
 
 Images are NHWC ([H, W, C]) at these functions and maps come back
 [H, W, 1] / [N, H, W, 1]; the model runs NCHW channels_last.
+
+A request records its stages as spans (``utils/profiling.py``; only while a
+``torch.profiler`` session runs): ``serve.tiled`` around the request, inside
+it ``serve.tiles`` (cut, stack, pad, layout), ``serve.encode``,
+``serve.weights``, then ``serve.decode`` and ``serve.blend`` once a sample.
+``encode_tiles`` counts the grid's tiles and the encoder slots they take,
+padding included (``ops/_ext.py``'s ``tiles`` and ``tile_slots``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 
 from vaeunet_tpu_torch.device import as_image, check_serving_model, resolve_device
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet
+from vaeunet_tpu_torch.ops._ext import LAUNCHES
+from vaeunet_tpu_torch.utils.profiling import span
 
 
 def adaptive_overlap(patch_size: int) -> int:
@@ -87,14 +96,18 @@ def encode_tiles(model: UNetResNet, image: torch.Tensor, patch_size: int,
     the last tile (the JAX package's static batching).
     """
     h, w = image.shape[0], image.shape[1]
-    grid = compute_tile_grid(h, w, patch_size, overlap)
-    tiles = torch.stack([image[y:y + patch_size, x:x + patch_size] for (y, x) in grid])
-    pad = -len(grid) % batch_size
-    if pad:
-        tiles = torch.cat([tiles, tiles[-1:].expand(pad, *tiles.shape[1:])])
-    tiles = tiles.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    batches = [model.encoder(tiles[k:k + batch_size])
-               for k in range(0, tiles.shape[0], batch_size)]
+    with span("serve.tiles"):
+        grid = compute_tile_grid(h, w, patch_size, overlap)
+        tiles = torch.stack([image[y:y + patch_size, x:x + patch_size] for (y, x) in grid])
+        pad = -len(grid) % batch_size
+        if pad:
+            tiles = torch.cat([tiles, tiles[-1:].expand(pad, *tiles.shape[1:])])
+        tiles = tiles.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    LAUNCHES["tiles"] += len(grid)
+    LAUNCHES["tile_slots"] += tiles.shape[0]
+    with span("serve.encode"):
+        batches = [model.encoder(tiles[k:k + batch_size])
+                   for k in range(0, tiles.shape[0], batch_size)]
     return grid, batches
 
 
@@ -102,34 +115,37 @@ def _decode_tiles(model: UNetResNet, batches, z: torch.Tensor, patch_size: int,
                   n_tiles: int) -> torch.Tensor:
     """Decode every tile with the shared latent z [1, D] -> sigmoid
     [T, 1, P, P] fp32 (visualize_vae.py:322-345)."""
-    preds = []
-    for feats in batches:
-        zb = z.expand(feats[0].shape[0], z.shape[-1])
-        logits = model.decode_features(zb, feats, output_hw=(patch_size, patch_size))
-        preds.append(torch.sigmoid(logits.float()))
-    return torch.cat(preds)[:n_tiles]
+    with span("serve.decode"):
+        preds = []
+        for feats in batches:
+            zb = z.expand(feats[0].shape[0], z.shape[-1])
+            logits = model.decode_features(zb, feats, output_hw=(patch_size, patch_size))
+            preds.append(torch.sigmoid(logits.float()))
+        return torch.cat(preds)[:n_tiles]
 
 
 def _blend(preds: torch.Tensor, weights: torch.Tensor, wsum: torch.Tensor,
            grid, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Weighted add of [T,C,P,P] tiles in grid order into [H,W,C], divided
     by the weight sum.  (visualize_vae.py:383-384,409)"""
-    h, w = out_hw
-    p = preds.shape[-1]
-    out = torch.zeros((preds.shape[1], h, w), dtype=torch.float32, device=preds.device)
-    for t, (y, x) in enumerate(grid):
-        out[:, y:y + p, x:x + p] += preds[t] * weights[t]
-    return (out / (wsum + 1e-8)).permute(1, 2, 0)
+    with span("serve.blend"):
+        h, w = out_hw
+        p = preds.shape[-1]
+        out = torch.zeros((preds.shape[1], h, w), dtype=torch.float32, device=preds.device)
+        for t, (y, x) in enumerate(grid):
+            out[:, y:y + p, x:x + p] += preds[t] * weights[t]
+        return (out / (wsum + 1e-8)).permute(1, 2, 0)
 
 
 def _weights(h: int, w: int, grid, patch_size: int, overlap: int, device):
     """-> (weights [T,1,P,P], weight sum [1,H,W]) in fp32, summed in grid order."""
-    weights = torch.from_numpy(tile_weight_masks(h, w, patch_size, overlap)).to(device)
-    weights = weights.permute(0, 3, 1, 2)
-    wsum = torch.zeros((1, h, w), dtype=torch.float32, device=device)
-    for t, (y, x) in enumerate(grid):
-        wsum[:, y:y + patch_size, x:x + patch_size] += weights[t]
-    return weights, wsum
+    with span("serve.weights"):
+        weights = torch.from_numpy(tile_weight_masks(h, w, patch_size, overlap)).to(device)
+        weights = weights.permute(0, 3, 1, 2)
+        wsum = torch.zeros((1, h, w), dtype=torch.float32, device=device)
+        for t, (y, x) in enumerate(grid):
+            wsum[:, y:y + patch_size, x:x + patch_size] += weights[t]
+        return weights, wsum
 
 
 @torch.inference_mode()
@@ -138,20 +154,21 @@ def predict_tiled_ensemble(model: UNetResNet, image, zs: torch.Tensor,
                            batch_size: int = 8, device=None) -> torch.Tensor:
     """[N,H,W,1] sigmoid maps of one image [H,W,C] for N latents zs [N,D]:
     the tile encoder runs once, the decoder once per sample."""
-    device = resolve_device(device)
-    check_serving_model(model, device)
-    if overlap is None:
-        overlap = adaptive_overlap(patch_size)
-    image = as_image(image, device)
-    zs = torch.as_tensor(zs, dtype=torch.float32, device=device)
-    h, w = image.shape[0], image.shape[1]
-    grid, batches = encode_tiles(model, image, patch_size, overlap, batch_size)
-    weights, wsum = _weights(h, w, grid, patch_size, overlap, device)
-    maps = []
-    for z in zs:
-        preds = _decode_tiles(model, batches, z[None], patch_size, len(grid))
-        maps.append(_blend(preds, weights, wsum, grid, (h, w)))
-    return torch.stack(maps)
+    with span("serve.tiled"):
+        device = resolve_device(device)
+        check_serving_model(model, device)
+        if overlap is None:
+            overlap = adaptive_overlap(patch_size)
+        image = as_image(image, device)
+        zs = torch.as_tensor(zs, dtype=torch.float32, device=device)
+        h, w = image.shape[0], image.shape[1]
+        grid, batches = encode_tiles(model, image, patch_size, overlap, batch_size)
+        weights, wsum = _weights(h, w, grid, patch_size, overlap, device)
+        maps = []
+        for z in zs:
+            preds = _decode_tiles(model, batches, z[None], patch_size, len(grid))
+            maps.append(_blend(preds, weights, wsum, grid, (h, w)))
+        return torch.stack(maps)
 
 
 def predict_with_patches(model: UNetResNet, image, z: torch.Tensor, patch_size: int = 512,

@@ -12,10 +12,14 @@ Every C entry returns ``cudaGetLastError()``; :func:`call` raises when it is
 not 0.  :func:`call` is on every launch's path, so it keeps its host work
 small: each C function is looked up once and kept with its argtypes, and
 when the tensor's device is the current device the stream handle is read
-directly, without entering a device context.  The launch counters are
-plain integers, one per kernel: a wrapper adds one where it launches its
-kernel and nowhere else, so a run can show which kernels its path went
-through.
+directly, without entering a device context.
+
+``LAUNCHES`` is the program's table of counters, plain integers: one per
+kernel, which its wrapper adds to where it launches the kernel and nowhere
+else, so a run can show which kernels its path went through; the host
+cost of :func:`call` while a ``torch.profiler`` session runs (otherwise it
+costs one test of the profiler's flag); and the tiled requests' tiles
+against the encoder slots they take (``inference/tiled.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -81,16 +86,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
 }
 
-# kernel -> launches since the last reset.  "resize" counts its wrapper's
-# launches on any route, "resize_row" those of them that took the row kernel,
-# and "resize_bwd" / "resize_bwd_row" the same of the gradient's wrapper;
-# "conv_bn_stats" counts its wrapper's launches of the wgmma and the fp32
-# kernels, "conv_bn_stats_fp32" those of the fp32 one, and
-# "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in "conv_bn_stats").
+# counter -> its count since the last reset.  Kernel launches: "resize"
+# counts its wrapper's launches on any route, "resize_row" those of them that
+# took the row kernel, and "resize_bwd" / "resize_bwd_row" the same of the
+# gradient's wrapper; "conv_bn_stats" counts its wrapper's launches of the
+# wgmma and the fp32 kernels, "conv_bn_stats_fp32" those of the fp32 one, and
+# "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in
+# "conv_bn_stats").  "ext_calls" and "ext_call_ns": the calls of `call` and
+# their host nanoseconds, entry to return, counted only while a profiler
+# session runs.  "tiles" and "tile_slots": the tiles of the tiled requests'
+# grids and the encoder batch slots they took, padding included.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
                             "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
                             "conv_bn_stats": 0,
-                            "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0}
+                            "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0,
+                            "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # C function -> the bound ctypes function (the names are unique across libraries)
@@ -202,7 +212,20 @@ def _raw_stream() -> int:
 
 def call(name: str, fn: str, device: torch.device, *args) -> None:
     """Launch C entry `fn` of library `name` on `device`'s current stream
-    (the stream is appended as the last argument); raise on a CUDA error."""
+    (the stream is appended as the last argument); raise on a CUDA error.
+    While a profiler session runs, count the call and its host time."""
+    if _torch_profiler._is_profiler_enabled:
+        t0 = time.perf_counter_ns()
+        try:
+            _call(name, fn, device, args)
+        finally:
+            LAUNCHES["ext_calls"] += 1
+            LAUNCHES["ext_call_ns"] += time.perf_counter_ns() - t0
+    else:
+        _call(name, fn, device, args)
+
+
+def _call(name: str, fn: str, device: torch.device, args) -> None:
     f = _FNS.get(fn)
     if f is None:
         f = _FNS[fn] = getattr(library(name), fn)

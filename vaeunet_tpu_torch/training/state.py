@@ -41,6 +41,7 @@ from vaeunet_tpu_torch.models.unet import UNet, build_unet
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet, build_model as build_vae_unet
 from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.training.config import TrainConfig
+from vaeunet_tpu_torch.utils.profiling import span
 
 
 class ClippedAdamW:
@@ -68,8 +69,11 @@ class ClippedAdamW:
         return norm
 
     def step(self) -> torch.Tensor:
-        norm = self.clip_()
-        self.adamw.step()
+        """Clip, then AdamW (spans ``train.clip``, ``train.adamw``)."""
+        with span("train.clip"):
+            norm = self.clip_()
+        with span("train.adamw"):
+            self.adamw.step()
         return norm
 
     def zero_grad(self) -> None:

@@ -53,6 +53,12 @@ global batch, the pjit step of ``parallel/dp.py``: BN moments and the
 loss run over every rank's rows, the random draws are the global batch's
 (this rank's rows of them), and the averaged gradient is the global one.
 No group: the single-process step, unchanged.
+
+The train step records its phases as spans (``utils/profiling.py``; only
+while a ``torch.profiler`` session runs): ``train.step`` around the whole
+step, inside it ``train.gather`` (the indexed step's batch),
+``train.forward`` and ``train.backward`` once a microbatch, then
+``train.clip`` and ``train.adamw`` (``training/state.py``).
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.sampling import fold_in, gaussian_like, seed_from_generator
 from vaeunet_tpu_torch.training.config import TrainConfig
 from vaeunet_tpu_torch.training.state import TrainState
+from vaeunet_tpu_torch.utils.profiling import span
 from vaeunet_tpu_torch.vae_utils import mean_tempered_logits
 
 
@@ -269,12 +276,15 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
                     eps_i = gaussian_like(generator, (micro * world, model.latent_dim),
                                           device)[rank * micro:(rank + 1) * micro]
                 with anomaly_mode():
-                    loss, aux = forward_loss(model, criterion, config, x[sl], m[sl], beta,
-                                             generator=generator, eps=eps_i, group=loss_group)
+                    with span("train.forward"):
+                        loss, aux = forward_loss(model, criterion, config, x[sl], m[sl], beta,
+                                                 generator=generator, eps=eps_i,
+                                                 group=loss_group)
                     if config.debug_nans and not bool(torch.isfinite(loss)):
                         raise FloatingPointError(
                             f"non-finite loss {loss.item()} in microbatch {i}")
-                    loss.backward()
+                    with span("train.backward"):
+                        loss.backward()
                 auxes.append({k: v.detach() for k, v in aux.items()})
         if accum > 1:
             with torch.no_grad():
@@ -296,12 +306,17 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
                               for b in (mod.running_mean, mod.running_var)], group)
         return out
 
-    def step(state: TrainState, images, masks, beta: float,
-             eps: Optional[torch.Tensor] = None):
+    def update(state: TrainState, images, masks, beta: float,
+               eps: Optional[torch.Tensor] = None):
         aux = compute_gradients(state, images, masks, beta, eps)
         state.optimizer.step()
         state.step += 1
         return state, aux
+
+    def step(state: TrainState, images, masks, beta: float,
+             eps: Optional[torch.Tensor] = None):
+        with span("train.step"):
+            return update(state, images, masks, beta, eps)
 
     if indexed:
         gather = gather or gather_batch_device
@@ -309,9 +324,11 @@ def make_train_step(config: TrainConfig, model: torch.nn.Module,
         def indexed_step(state: TrainState, data_images: torch.Tensor,
                          data_masks: torch.Tensor, idx, beta: float,
                          eps: Optional[torch.Tensor] = None):
-            images, masks = gather(data_images, data_masks,
-                                   _index_tensor(idx, data_images.device))
-            return step(state, images, masks, beta, eps)
+            with span("train.step"):
+                with span("train.gather"):
+                    images, masks = gather(data_images, data_masks,
+                                           _index_tensor(idx, data_images.device))
+                return update(state, images, masks, beta, eps)
 
         return indexed_step
     step.compute_gradients = compute_gradients
