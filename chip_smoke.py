@@ -23,7 +23,11 @@ the card, in phases that each fail the run with a non-zero exit:
    at the twelve shapes of the request in fp32 and of the eval step in
    bf16, through the wrapper and the launch alone beside F.batch_norm +
    relu_, with each path's sum of launches x ms against its bound and the
-   shapes at which the kernel is slower than the library call;
+   shapes at which the kernel is slower than the library call; the
+   training BN + ReLU kernels at the two training cells' widest sites
+   (forward bit for bit with the plain version, running statistics
+   included; backward repeated bit for bit and within a bf16 ulp of the
+   closed form), beside training ``F.batch_norm`` + relu and its backward;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -200,6 +204,7 @@ from vaeunet_tpu_torch.parallel.inference import (
 from vaeunet_tpu_torch.parallel.tp import shard_state
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
+from vaeunet_tpu_torch.ops.pallas import bn_train as bn_train_mod
 from vaeunet_tpu_torch.ops.pallas import conv_bn_stats as conv_mod
 from vaeunet_tpu_torch.ops.pallas import reparam as reparam_mod
 from vaeunet_tpu_torch.ops.pallas import resize_mm
@@ -1087,6 +1092,114 @@ def kernel_resize_bwd_c1(table: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the training BN sites timed: the UNet's widest and resnet34's (bf16, ReLU)
+BN_TRAIN_SHAPES = ((16, 64, 512, 512), (16, 64, 256, 256))
+
+
+def kernel_bn_train(table: dict) -> None:
+    """The training BN + ReLU kernels at the widest site of each training
+    cell: the forward against the plain version on the card bit for bit,
+    running statistics included; the backward twice, bit for bit, and
+    within a bf16 ulp (+ 1e-5 of the largest term) of the plain closed
+    form.  Timed: through the wrapper ("w"), the launch alone ("a"), a CUDA
+    graph of 10 launches ("d"); the plain versions; the library yardstick,
+    training ``F.batch_norm`` + ``relu`` and their autograd backward (never
+    called by the port); the bounds, y in and out out forward, g and y in
+    and dy out backward."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cl = torch.channels_last
+    for shape in BN_TRAIN_SHAPES:
+        c = shape[1]
+        y = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.5).to(torch.bfloat16)
+        y = y.contiguous(memory_format=cl)
+        y32 = y.float()
+        s, q = y32.sum((0, 2, 3)), (y32 * y32).sum((0, 2, 3))
+        del y32
+        grad = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        w = torch.rand(c, device="cuda", generator=g) + 0.5
+        b = torch.randn(c, device="cuda", generator=g) * 0.5
+        stats = (torch.randn(c, device="cuda", generator=g), torch.rand(c, device="cuda") + 0.5,
+                 torch.zeros((), dtype=torch.int64, device="cuda"))
+        ours = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
+        ref = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
+        out = bn_train_mod.bn_train(y, s, q, w, b, True, 1e-5, ours)
+        want = bn_train_mod.bn_train_plain(y, s, q, w, b, True, 1e-5, ref)
+        torch.cuda.synchronize()
+        name = f"bn_train {list(shape)} bf16 relu"
+        check(torch.equal(out, want) and all(torch.equal(x, z) for x, z in zip(ours, ref)
+                                             if isinstance(x, torch.Tensor)),
+              f"{name}: the forward or the running statistics differ from the plain version")
+        del want
+        dy = torch.empty_like(y, memory_format=cl)
+        fn_b, args_b, grads, keep = bn_train_mod.backward_launch_args(grad, y, dy, s, q, w, b,
+                                                                      True, 1e-5)
+        _ext.call("bn_train", fn_b, y.device, *args_b)
+        first = (dy.clone(), *(t.clone() for t in grads))
+        _ext.call("bn_train", fn_b, y.device, *args_b)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, z) for x, z in zip(first, (dy, *grads))),
+              f"{name}: the backward does not repeat bit for bit")
+        plain = bn_train_mod.bn_train_backward_plain(grad, y, s, q, w, b, True, 1e-5)
+        _, _, inv = bn_train_mod.fold_moments(s, q, y.numel() // c, 1e-5, w)
+        top = max(plain[0].float().abs().max().item(),
+                  inv.abs().max().item() * grad.float().abs().max().item())
+        diff = (dy.float() - plain[0].float()).abs()
+        err = diff.max().item()
+        check(bool((diff <= 2.0 ** -7 * plain[0].float().abs() + 1e-5 * top).all()),
+              f"{name}: dy beyond a bf16 ulp + 1e-5 of the plain closed form ({err})")
+        err_wb = max(((x - z).abs().max() / z.abs().max()).item()
+                     for x, z in zip(grads, plain[1:]))
+        check(err_wb <= 1e-4, f"{name}: dweight or dbias differ by {err_wb} of their max")
+        del plain, diff
+        fn_f, args_f = bn_train_mod.forward_launch_args(y, out, s, q, w, b, True, 1e-5, None)
+        nbytes = y.numel() * y.element_size()
+        it = iters_for(3 * nbytes)
+        t = paired_ms({
+            "fwd_w": lambda: bn_train_mod.bn_train(y, s, q, w, b, True, 1e-5, None),
+            "fwd_a": lambda: _ext.call("bn_train", fn_f, y.device, *args_f),
+            "bwd_w": lambda: bn_train_mod._backward_cuda(grad, y, s, q, w, b, True, 1e-5),
+            "bwd_a": lambda: _ext.call("bn_train", fn_b, y.device, *args_b)}, it)
+        d_fwd = device_ms(lambda: _ext.call("bn_train", fn_f, y.device, *args_f), 10, 5)
+        d_bwd = device_ms(lambda: _ext.call("bn_train", fn_b, y.device, *args_b), 10, 5)
+        plain_fwd = time_ms(lambda: bn_train_mod.bn_train_plain(y, s, q, w, b, True), 5)
+        plain_bwd = time_ms(lambda: bn_train_mod.bn_train_backward_plain(grad, y, s, q, w, b,
+                                                                         True), 5)
+        yl, wl, bl = y.detach().requires_grad_(), w.clone().requires_grad_(), b.clone(
+        ).requires_grad_()
+        rm, rv = stats[0].clone(), stats[1].clone()
+
+        def library():
+            return F.relu(F.batch_norm(yl, rm, rv, wl, bl, True, 0.1, 1e-5))
+
+        lib_fwd = time_ms(library, 10)
+        lib_out = library()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (yl, wl, bl), grad,
+                                                      retain_graph=True), 10)
+        bnd_fwd, by = bound_ms(2 * nbytes + 32 * c, 0)
+        bnd_bwd, _ = bound_ms(3 * nbytes, 0)
+        r_plan = bn_train_mod.plan(y.numel() // c, c, 2, True, bn_train_mod._sms(y.device))
+        log(f"{name} forward: bit for bit (running statistics too)  w {t['fwd_w']:.4f} ms  "
+            f"a {t['fwd_a']:.4f} ms  d {d_fwd:.4f} ms ({bnd_fwd / d_fwd:.0%} of the bound)  "
+            f"plain {plain_fwd:.4f} ms  F.batch_norm+relu {lib_fwd:.4f} ms  bound "
+            f"{bnd_fwd:.4f} ms ({by})")
+        log(f"{name} backward: repeats bit for bit, dy max err {err:.3g} vs the plain closed "
+            f"form, dweight/dbias {err_wb:.3g} of their max  w {t['bwd_w']:.4f} ms  a "
+            f"{t['bwd_a']:.4f} ms  d {d_bwd:.4f} ms ({bnd_bwd / d_bwd:.0%} of the bound)  plain "
+            f"{plain_bwd:.4f} ms  autograd of F.batch_norm+relu {lib_bwd:.4f} ms  bound "
+            f"{bnd_bwd:.4f} ms  sums pass {r_plan.reduce.block} x {r_plan.reduce.grid}, dy "
+            f"pass {r_plan.apply.block} x {r_plan.apply.grid}")
+        if shape == BN_TRAIN_SHAPES[0]:
+            for key, ms, wrapper, dev, pl, lib, bnd in (
+                    ("bn_train_fwd", t["fwd_a"], t["fwd_w"], d_fwd, plain_fwd, lib_fwd, bnd_fwd),
+                    ("bn_train_bwd", t["bwd_a"], t["bwd_w"], d_bwd, plain_bwd, lib_bwd, bnd_bwd)):
+                _record(table, key, err=err if key == "bn_train_bwd" else 0.0, ms=ms,
+                        wrapper_ms=wrapper, device_ms=dev, plain_ms=pl, library_ms=lib,
+                        bound_ms=bnd, bound_by="bytes", shape=f"{list(shape)} bf16 relu")
+        del y, grad, out, dy, first, grads, keep, yl, lib_out
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     table: dict = {}
     kernel_bn_relu(table)
@@ -1097,6 +1210,7 @@ def phase_kernels() -> dict:
     kernel_conv_bn_stats(table)
     kernel_resize_bwd(table)
     kernel_resize_bwd_c1(table)
+    kernel_bn_train(table)
     return table
 
 
@@ -1229,7 +1343,7 @@ def launches(times: int = 1, **per_run) -> dict:
 # the wrappers' counters, one `_ext.call` each ("resize_row",
 # "resize_bwd_row" and "conv_bn_stats_fp32" count a share of their wrapper's)
 CALL_COUNTERS = ("normal", "reparam", "bn_relu", "resize", "resize_bwd", "conv_bn_stats",
-                 "conv_bn_stats_ci8")
+                 "conv_bn_stats_ci8", "bn_train_fwd", "bn_train_bwd")
 
 
 def ext_calls(counts: dict) -> int:
@@ -1242,11 +1356,14 @@ def expected_train_launches(steps: int, amp: bool = True) -> dict:
     (stage sizes 3, 4, 6, 3: every block's conv2 and its stride-1 conv1) and
     8 decoder conv + BN pairs take the conv kernel, 4 decoder upsamples and
     the final one to 512^2 the resize kernel, whose backward runs as often,
-    and the latent draw one noise kernel; eval BN+ReLU and the fused draw
-    are not on this path.  The logits' resize and its gradient take the row
-    kernels, and without `amp` every conv launch the fp32 kernel."""
+    and the latent draw one noise kernel; each conv + BN site's BN and
+    ReLU take the training BN kernels once forward and once backward; eval
+    BN+ReLU and the fused draw are not on this path.  The logits' resize
+    and its gradient take the row kernels, and without `amp` every conv
+    launch the fp32 kernel."""
     return launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
-                    resize=5, resize_row=1, resize_bwd=5, resize_bwd_row=1, normal=1)
+                    bn_train_fwd=29 + 8, bn_train_bwd=29 + 8, resize=5, resize_row=1,
+                    resize_bwd=5, resize_bwd_row=1, normal=1)
 
 
 def first_step_moved_everything(model, before: dict) -> None:
@@ -1310,7 +1427,8 @@ def phase_train() -> dict:
                     "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
     expected = expected_train_launches(TIMED_STEPS)
     log(f"train launches over {TIMED_STEPS} steps: {counts}  expected {expected}")
-    for k in ("conv_bn_stats", "resize", "resize_row", "resize_bwd", "resize_bwd_row", "normal"):
+    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize", "resize_row",
+              "resize_bwd", "resize_bwd_row", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the training path")
     check(counts == expected, f"training launch counts {counts} differ from the code's {expected}")
 
@@ -1544,8 +1662,8 @@ def phase_unet_train() -> list:
         label = f"UNet bilinear={bilinear}"
         up = 4 if bilinear else 0
         state, counts, images, masks = train_path(
-            config, label, dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=up,
-                                resize_bwd=up))
+            config, label, dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18,
+                                bn_train_bwd=18, resize=up, resize_bwd=up))
         out.append(counts)
         _ext.reset_launch_counts()
         metrics, logits = make_eval_step(config, state.model)(images, masks)
@@ -1572,8 +1690,8 @@ def phase_r50_train() -> dict:
     config = train_config(backbone="resnet50", deep_supervision=True)
     state, counts, _, _ = train_path(
         config, "resnet50 VAE-UNet + deep supervision",
-        dict(conv_bn_stats=21, resize=5 + 3, resize_row=1 + 3, resize_bwd=5, resize_bwd_row=1,
-             normal=1))
+        dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, resize=5 + 3, resize_row=1 + 3,
+             resize_bwd=5, resize_bwd_row=1, normal=1))
     del state
     torch.cuda.empty_cache()
     phase_train_parity("resnet50 VAE-UNet + deep supervision", backbone="resnet50",
@@ -1635,6 +1753,9 @@ def phase_remat() -> dict:
         torch.cuda.empty_cache()
     base = runs["none"]
     check(base["counts"]["conv_bn_stats"] == 37, "remat none: conv launches")
+    check(base["counts"]["bn_train_fwd"] == 37 == base["counts"]["bn_train_bwd"],
+          "remat none: training BN launches")
+    # the recompute runs every site's BN again under both policies
     for policy, conv_launches in (("full", 74), ("save_convs", 37)):
         r = runs[policy]
         ours = torch.cat([r["grads"][k].flatten() for k in base["grads"]])
@@ -1652,6 +1773,9 @@ def phase_remat() -> dict:
         check(r["counts"]["conv_bn_stats"] == conv_launches,
               f"remat {policy}: {r['counts']['conv_bn_stats']} conv launches, "
               f"expected {conv_launches}")
+        check((r["counts"]["bn_train_fwd"], r["counts"]["bn_train_bwd"]) == (74, 37),
+              f"remat {policy}: training BN launches {r['counts']['bn_train_fwd']} forward, "
+              f"{r['counts']['bn_train_bwd']} backward, expected 74 and 37")
     check(base["tracked"] == {1}, f"remat none: num_batches_tracked {base['tracked']}")
     check(runs["full"]["peak"] < base["peak"], "remat full holds no less memory than none")
     check(runs["full"]["held"] < runs["save_convs"]["held"] < base["held"],
@@ -1663,8 +1787,8 @@ def phase_remat() -> dict:
 
 FUNDUS_SPLITS = (("train", 4), ("val", 2))
 LOOP_SCALE, LOOP_EPOCHS = 0.5, 2
-TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, resize=5, resize_row=1, resize_bwd=5,
-                           resize_bwd_row=1, normal=2)
+TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, bn_train_fwd=37, bn_train_bwd=37, resize=5,
+                           resize_row=1, resize_bwd=5, resize_bwd_row=1, normal=2)
 EVAL_STEP_LAUNCHES = dict(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
 
 
@@ -2490,8 +2614,10 @@ def phase_parallel() -> dict:
     held_to_harness("(b) DP step vs the one-rank step", r0["dp_state"], host_state(state.model),
                     lr)
     per_rank = expected_train_launches(1, amp=False)
-    fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, resize=5, resize_row=1,
-                   resize_bwd=5, resize_bwd_row=1)   # the steps on fed noise draw none
+    per_rank.update(bn_train_fwd=0, bn_train_bwd=0)     # its BNs sum the moments over 2 ranks
+    fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, bn_train_fwd=37, bn_train_bwd=37,
+                   resize=5, resize_row=1, resize_bwd=5,
+                   resize_bwd_row=1)   # the steps on fed noise draw none
     for r in ranks:
         check(r["dp_counts"] == per_rank and r["explicit_counts"] == fed == r["tp_counts"],
               f"rank {r['rank']}: step launches {r['dp_counts']} / {r['explicit_counts']} / "
@@ -2572,7 +2698,8 @@ def phase_parallel() -> dict:
           "the UNet TP step's loss differs from the unsharded step's")
     grads_held("(b) UNet TP step vs its hand split", r0["unet_tp_grads"], refs[True][1],
                SPLIT_GRAD_LIMIT, head="outc.conv")
-    unet_fed = launches(1, conv_bn_stats=18, conv_bn_stats_fp32=18)
+    unet_fed = launches(1, conv_bn_stats=18, conv_bn_stats_fp32=18, bn_train_fwd=18,
+                        bn_train_bwd=18)
     for r in ranks:
         check(r["unet_tp_counts"] == unet_fed, f"rank {r['rank']}: UNet TP step launches "
               f"{r['unet_tp_counts']} differ from the code's {unet_fed}")
@@ -2609,8 +2736,10 @@ PRETRAIN_BATCH, PRETRAIN_STEPS = 8, 3
 # per step at 512^2: the encoder's 29 stride-1 conv + BN pairs; the masked
 # head's 5 upsamples and its resize to the input, forward and backward; the
 # contrastive views' two noise draws
-PRETEXT_LAUNCHES = {"masked": dict(conv_bn_stats=29, resize=6, resize_bwd=6),
-                    "contrastive": dict(conv_bn_stats=29, normal=2)}
+PRETEXT_LAUNCHES = {"masked": dict(conv_bn_stats=29, bn_train_fwd=29, bn_train_bwd=29, resize=6,
+                               resize_bwd=6),
+                    "contrastive": dict(conv_bn_stats=29, bn_train_fwd=29, bn_train_bwd=29,
+                                        normal=2)}
 
 
 def phase_pretrain(root: Path) -> dict:
@@ -2902,7 +3031,7 @@ def phase_ensemble_tools(root: Path) -> dict:
     log(f"sweep: {SWEEP_TRIALS} trials in {sweep_s:.1f} s, launches {counts}  [{smi}]")
     check(len(records) == len(results) == SWEEP_TRIALS
           and all(r["status"] == "ok" for r in records), f"sweep records {records}")
-    for k in ("conv_bn_stats", "resize_bwd", "normal", "bn_relu"):
+    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize_bwd", "normal", "bn_relu"):
         check(counts[k] > 0, f"the sweep's training launched no {k}")
 
     # 6. the two benchmark entry points at their defaults
@@ -2948,6 +3077,9 @@ KERNELS = (
     ("resize_c1", "vaeunet_tpu_torch/csrc/resize.cu", "vaeunet_tpu/ops/pallas/resize_mm.py:70,98"),
     ("resize_bwd_c1", "vaeunet_tpu_torch/csrc/resize.cu",
      "vaeunet_tpu/ops/pallas/resize_mm.py:125-151"),
+    # no Pallas kernel: the JAX package leaves the training BN to XLA
+    ("bn_train_fwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
+    ("bn_train_bwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
 )
 # entry of the kernels line -> its launch counter where the names differ
 COUNTERS = {"resize_c1": "resize_row", "resize_bwd_c1": "resize_bwd_row"}

@@ -157,11 +157,12 @@ def test_gradient_through_a_checkpointed_block_with_kernels(cuda, policy, dtype)
 
 
 @pytest.mark.parametrize("kind,per_step", [
-    ("unet", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=0, resize_bwd=0, normal=0)),
-    ("unet_bilinear", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, resize=4, resize_bwd=4,
-                           normal=0)),
-    ("resnet50_ds", dict(conv_bn_stats=21, resize=8, resize_row=4, resize_bwd=5,
-                         resize_bwd_row=1, normal=1)),
+    ("unet", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18, bn_train_bwd=18,
+                  resize=0, resize_bwd=0, normal=0)),
+    ("unet_bilinear", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18,
+                           bn_train_bwd=18, resize=4, resize_bwd=4, normal=0)),
+    ("resnet50_ds", dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, resize=8,
+                         resize_row=4, resize_bwd=5, resize_bwd_row=1, normal=1)),
 ])
 def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
     """A bf16 step at 64^2, batch 2: every parameter gets a finite

@@ -65,6 +65,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_bn_relu_f32": [_P] * 6 + [_F, _I64] + [_I] * 6 + [_P],
         "vaeunet_bn_relu_bf16": [_P] * 6 + [_F, _I64] + [_I] * 6 + [_P],
     },
+    "bn_train": {
+        # y, out, s, q, weight, bias, running mean, var, count; 1 / n, eps,
+        # momentum, 1 - momentum, n / (n - 1); rows; C, the plan, flags
+        "vaeunet_bn_train_fwd_f32": [_P] * 9 + [_F] * 5 + [_I64] + [_I] * 7 + [_P],
+        "vaeunet_bn_train_fwd_bf16": [_P] * 9 + [_F] * 5 + [_I64] + [_I] * 7 + [_P],
+        # g, y, dy, s, q, weight, bias, partial, tickets, coef, dweight, dbias;
+        # 1 / n, eps; rows; C, V, the sums pass's block and grid, dy's, relu
+        "vaeunet_bn_train_bwd_f32": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
+        "vaeunet_bn_train_bwd_bf16": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
+    },
     "resize": {
         "vaeunet_resize_f32": _RESIZE_TILED_ARGS,
         "vaeunet_resize_bf16": _RESIZE_TILED_ARGS,
@@ -92,14 +102,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # gradient's wrapper; "conv_bn_stats" counts its wrapper's launches of the
 # wgmma and the fp32 kernels, "conv_bn_stats_fp32" those of the fp32 one, and
 # "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in
-# "conv_bn_stats").  "ext_calls" and "ext_call_ns": the calls of `call` and
-# their host nanoseconds, entry to return, counted only while a profiler
-# session runs.  "tiles" and "tile_slots": the tiles of the tiled requests'
-# grids and the encoder batch slots they took, padding included.
+# "conv_bn_stats").  "bn_train_fwd" and "bn_train_bwd" count the training
+# BN kernels' forward launches and backward calls (two launches each).
+# "ext_calls" and "ext_call_ns": the calls of `call` and their host
+# nanoseconds, entry to return, counted only while a profiler session runs.
+# "tiles" and "tile_slots": the tiles of the tiled requests' grids and the
+# encoder batch slots they took, padding included.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
                             "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
                             "conv_bn_stats": 0,
                             "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0,
+                            "bn_train_fwd": 0, "bn_train_bwd": 0,
                             "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -142,7 +155,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

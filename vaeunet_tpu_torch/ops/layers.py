@@ -11,10 +11,13 @@ them to XLA), in the input's type as the JAX ``Conv`` computes them
   fused kernel of ``ops/pallas/bn_relu.py``;
 - :func:`conv3x3_bn` sends every stride-1, pad-1, bias-free 3x3 conv that
   feeds a training-mode BatchNorm through ``ops/pallas/conv_bn_stats.py``,
-  whose moments :meth:`BatchNorm.forward_moments` normalizes with (the JAX
-  ``BatchNorm(moments=...)``, ``layers.py:252-284``).  The JAX package
-  gates that kernel behind ``VAEUNET_FUSED_CONV_BN`` (``ops/fused.py``);
-  the port always takes it, so it has no switch.
+  whose moments the BN normalizes with (the JAX ``BatchNorm(moments=...)``,
+  ``layers.py:252-284``): :meth:`BatchNorm.forward_fused`, the kernel pair
+  of ``ops/pallas/bn_train.py`` (normalize and ReLU forward; a backward
+  that folds the moments' cotangents into dy), or, where the moments are
+  summed over a group, :meth:`BatchNorm.forward_moments` in torch ops.  The
+  JAX package gates the conv kernel behind ``VAEUNET_FUSED_CONV_BN``
+  (``ops/fused.py``); the port always takes it, so it has no switch.
 
 The fused-decoder helpers ``SlicedConv`` / ``constant_input_term`` are
 exact rewrites of the concatenation form, which the port computes
@@ -51,6 +54,8 @@ import torch.distributed as dist
 
 from vaeunet_tpu_torch.ops.collectives import all_reduce_sum
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
+from vaeunet_tpu_torch.ops.pallas.bn_train import (Running, bn_train, fold_moments,
+                                                   move_running, normalize_plain)
 from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats, fold_cotangents
 
 
@@ -136,23 +141,28 @@ class BatchNorm(nn.BatchNorm2d):
         fp32 and the output takes y's type.  Differentiable in y, s, q and
         the affine parameters.  With ``group`` set, s and q are summed over
         its ranks first and n counts all their rows."""
-        c = y.shape[1]
-        n = y.numel() // c
+        n = y.numel() // y.shape[1]
         if self.group is not None:
             s, q = all_reduce_sum(torch.stack([s, q]), self.group).unbind()
             n *= dist.get_world_size(self.group)
-        mean = s / n
-        var = torch.clamp(q / n - mean * mean, min=0.0)
+        mean, var, inv = fold_moments(s, q, n, self.eps, self.weight)
         if not remat.bn_frozen():
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
-                self.num_batches_tracked.add_(1)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        shape = (1, c, 1, 1)
-        out = (y.float() - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
-        return out.to(y.dtype)
+            move_running(self._running(), mean, var, n)
+        return normalize_plain(y, mean, inv, self.bias)
+
+    def forward_fused(self, y: torch.Tensor, s: torch.Tensor, q: torch.Tensor,
+                      relu: bool) -> torch.Tensor:
+        """:meth:`forward_moments`, then ReLU if `relu`, as one autograd node
+        on the ``bn_train`` kernels (plain version on the CPU): the same
+        output and running statistics; its backward returns y's whole
+        cotangent, the paths through s and q included, so s and q must be
+        y's own moments (not summed over a group)."""
+        running = None if remat.bn_frozen() else self._running()
+        return bn_train(y, s, q, self.weight, self.bias, relu, self.eps, running)
+
+    def _running(self) -> Running:
+        return Running(self.running_mean, self.running_var, self.num_batches_tracked,
+                       self.momentum)
 
 
 def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -204,10 +214,11 @@ def _kept(conv: Conv, x: torch.Tensor, weight: torch.Tensor, compute):
 def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.Tensor:
     """bn(conv(x)) of a bias-free 3x3 conv, then ReLU if `relu`.  A
     training-mode BN after a conv of the kernel's shape takes the fused
-    conv + moments kernel; anything else (eval mode, a strided conv) keeps
-    ``F.conv2d`` and, for a BN -> ReLU pair in eval mode, the ``bn_relu``
-    kernel, as before.  In training the conv's products are the ones remat
-    ``'save_convs'`` keeps."""
+    conv + moments kernel, then the ``bn_train`` kernels for BN and ReLU
+    (torch ops where ``bn.group`` sums the moments over ranks); anything
+    else (eval mode, a strided conv) keeps ``F.conv2d`` and, for a BN ->
+    ReLU pair in eval mode, the ``bn_relu`` kernel, as before.  In training
+    the conv's products are the ones remat ``'save_convs'`` keeps."""
     if conv.bias is not None:
         raise ValueError("conv3x3_bn takes a bias-free conv")
     if not bn.training:
@@ -217,7 +228,10 @@ def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.
     x = conv.tp_input(x)
     if conv.takes_bn_stats_kernel():
         y, s, q = _kept(conv, x, w, lambda: conv3x3_bn_stats(x, w))
-        y = bn.forward_moments(conv.tp_output(y), conv.tp_output(s, 0), conv.tp_output(q, 0))
+        y, s, q = conv.tp_output(y), conv.tp_output(s, 0), conv.tp_output(q, 0)
+        if bn.group is None:
+            return bn.forward_fused(y, s, q, relu)
+        y = bn.forward_moments(y, s, q)
     else:
         (y,) = _kept(conv, x, w, lambda: (conv.local_conv(x, w),))
         y = bn(conv.tp_output(y))

@@ -1,6 +1,7 @@
 """Wrappers of the hand-written CUDA kernels, each beside its plain PyTorch
 version.  Port of ``vaeunet_tpu/ops/pallas/`` (the module names follow the
-Pallas files whose kernels they replace)."""
+Pallas files whose kernels they replace; ``bn_train`` replaces none, the
+JAX package leaving the training BN to XLA)."""
 
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
 from vaeunet_tpu_torch.ops.pallas.reparam import normal, reparameterize

@@ -47,7 +47,9 @@ order.
 
 The backward follows ``_bwd``: the moment cotangents fold into the output
 cotangent, g = gy + gs + 2 y gq in fp32 (plain torch; a missing cotangent
-counts as zero), cast to x's type, then the standard convolution VJPs,
+counts as zero), cast to x's type (with neither, as behind the
+``bn_train`` kernels, which fold them into gy themselves: gy as it is),
+then the standard convolution VJPs,
 which the JAX package leaves to XLA's convolutions and the port to
 ``torch.ops.aten.convolution_backward`` (cuDNN on the card).  Callers cast
 an fp32 weight to x's type *before* the call, so autograd carries the
@@ -228,7 +230,12 @@ def _forward_cuda(x: torch.Tensor, weight: torch.Tensor):
 
 def fold_cotangents(y: torch.Tensor, gy, gs, gq, dtype: torch.dtype) -> torch.Tensor:
     """g = gy + gs + 2 y gq per channel, in fp32, cast to `dtype`
-    (``conv_bn_stats.py:130-134``); None stands for a zero cotangent."""
+    (``conv_bn_stats.py:130-134``); None stands for a zero cotangent.  With
+    no moment cotangents (the ``bn_train`` kernels fold them into gy), a gy
+    already of `dtype` and channels_last is g itself, returned as it is."""
+    if (gs is None and gq is None and gy is not None and gy.dtype == dtype
+            and gy.is_contiguous(memory_format=torch.channels_last)):
+        return gy
     g = torch.zeros_like(y, dtype=torch.float32) if gy is None else gy.float()
     if gs is not None:
         g = g + gs.view(1, -1, 1, 1)

@@ -244,6 +244,7 @@ FAMILIES = (
                                             "conv3x3_stats_ci8_kernel",
                                             "reduce_partials_kernel")),
     ("bn_relu", ("bn_relu_",)),
+    ("bn_train (this port's kernel)", ("bn_train_",)),
     ("resize_bwd (this port's kernel)", ("resize_bwd_tiled_kernel", "resize_row_bwd_kernel",
                                          "resize_bilinear_bwd_kernel")),
     ("resize", ("resize_tiled_kernel", "resize_row_kernel", "resize_bilinear_kernel")),
