@@ -108,7 +108,8 @@ the card, in phases that each fail the run with a non-zero exit:
    contrastive pretext at full width (resnet34, 512^2, batch 8, bf16), 3
    steps each (every parameter moved and finite, launches held);
    ``time_fn``, ``trace`` and ``track_memory`` once each on the masked
-   step; ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
+   step (the traced step's ``bn_torch`` and ``bn_torch_bytes`` held to
+   the BN modules' training calls and their inputs' bytes); ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
    --pretrained-encoder`` starting from its encoder bit for bit;
 17. the ensemble protocol's tools, the offline sweep and the benchmark
    entry points, on phase 13's tree (its val split and phase 14's test
@@ -194,7 +195,7 @@ from vaeunet_tpu_torch.inference import predict_with_patches
 from vaeunet_tpu_torch.inference.tiled import adaptive_overlap, compute_tile_grid
 from vaeunet_tpu_torch.models import UNetResNet, build_unet
 from vaeunet_tpu_torch.ops import _ext, collectives
-from vaeunet_tpu_torch.ops.layers import ConvTranspose2x
+from vaeunet_tpu_torch.ops.layers import BatchNorm, ConvTranspose2x
 from vaeunet_tpu_torch.parallel import launch, make_dp_train_step, make_mesh, shard_batch
 from vaeunet_tpu_torch.parallel.inference import (
     decode_samples,
@@ -2778,20 +2779,37 @@ def phase_pretrain(root: Path) -> dict:
         check(counts == expected, f"{pretext} pretext launches {counts} differ from {expected}")
         total = {k: total[k] + counts[k] for k in total}
         if pretext == "masked":
+            # the input bytes of every training BN the model calls (the fused
+            # sites call `forward_fused`, not the module)
+            bn_inputs = []
+            hooks = [m.register_forward_pre_hook(
+                         lambda m, args: bn_inputs.append(args[0].numel() * args[0].element_size())
+                         if m.training else None)
+                     for m in model.modules() if isinstance(m, BatchNorm)]
+
             def profile():
                 mean_s = profiling.time_fn(lambda: step(state, images), iters=3, warmup=1)
+                bn_inputs.clear()
                 with profiling.trace(str(root / "trace")) as trace_path:
                     step(state, images)
                     torch.cuda.synchronize()
+                traced = list(bn_inputs)
                 loss = profiling.track_memory(lambda: step(state, images)[1].item())()
-                return mean_s, trace_path, loss
+                return mean_s, trace_path, loss, traced
 
             profiling.clear_spans()
-            (mean_s, trace_path, loss), counts, _ = counted(profile)
+            try:
+                (mean_s, trace_path, loss, traced), counts, _ = counted(profile)
+            finally:
+                for h in hooks:
+                    h.remove()
             size = Path(trace_path).stat().st_size
-            # the one traced step counts its calls and their host time
+            # the one traced step counts its calls and their host time, and
+            # the training BNs it ran on torch's ops with their inputs' bytes
             expected = launches(6, **PRETEXT_LAUNCHES[pretext])
             expected["ext_calls"] = ext_calls(launches(**PRETEXT_LAUNCHES[pretext]))
+            expected["bn_torch"] = len(traced)
+            expected["bn_torch_bytes"] = sum(traced)
             got = {k: v for k, v in counts.items() if k != "ext_call_ns"}
             expected.pop("ext_call_ns")
             recorded = [s.name for s in profiling.spans()]
@@ -2799,9 +2817,10 @@ def phase_pretrain(root: Path) -> dict:
                 f"synchronize); track_memory ran one (loss {loss:.5f}, "
                 f"{profiling.device_memory_mb():.0f} MB allocated); trace {trace_path}, {size} "
                 f"bytes; launches of the 6 steps {counts}  expected {expected} (ext_call_ns "
-                f"aside); spans of the traced step {recorded}")
+                f"aside; bn_torch from the BN modules' calls in the traced step); spans of the "
+                f"traced step {recorded}")
             check(size > 0 and mean_s > 0, "the profiling helpers wrote or timed nothing")
-            check(got == expected and counts["ext_call_ns"] > 0,
+            check(got == expected and counts["ext_call_ns"] > 0 and counts["bn_torch"] > 0,
                   f"profiled steps' launches {counts} differ from {expected}")
             total = {k: total[k] + counts[k] for k in total}
         del model, state, step, before

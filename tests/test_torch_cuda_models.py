@@ -186,6 +186,40 @@ def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
+@pytest.mark.parametrize("kind,bn_torch", [("resnet50", 57), ("resnet50_ds", 57)])
+def test_profiled_step_counts_the_torch_op_bns(cuda, kind, bn_torch):
+    """Under a profiler session, one bf16 resnet50 step at 64^2, batch 2
+    runs 57 training BNs on torch's ops (every BN outside the 21 fused
+    sites; deep supervision's heads carry none), and ``bn_torch_bytes``
+    counts their inputs' bf16 bytes; unprofiled, the counters stay 0."""
+    config = TrainConfig(batch_size=2, gradient_accumulation_steps=1, patch_size=64, amp=True,
+                         backbone="resnet50", deep_supervision=kind == "resnet50_ds")
+    state = create_train_state(config, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    images = torch.rand((2, 64, 64, 3), device=cuda, generator=g)
+    masks = (torch.rand((2, 64, 64, 1), device=cuda, generator=g) > 0.9).float()
+    step = make_train_step(config, state.model)
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda _m, args: seen.append(args[0]))
+             for m in state.model.modules() if isinstance(m, BatchNorm)]
+    try:
+        _ext.reset_launch_counts()
+        step.compute_gradients(state, images, masks, 0.001)
+        assert _ext.launch_counts()["bn_torch"] == 0
+        seen.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+            step.compute_gradients(state, images, masks, 0.001)
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = _ext.launch_counts()
+    assert counts["bn_torch"] == len(seen) == bn_torch
+    assert counts["bn_torch_bytes"] == sum(t.numel() * 2 for t in seen)
+    assert all(t.dtype == torch.bfloat16 for t in seen)
+    assert counts["bn_train_fwd"] == counts["bn_train_bwd"] == 2 * 21
+
+
 def test_unet_eval_forward_launches_bn_relu(cuda):
     model = build_unet(3, 1, bilinear=True, device=cuda)
     x = cl(torch.rand((1, 3, 64, 48), device=cuda))

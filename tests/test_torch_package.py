@@ -166,7 +166,8 @@ def test_cpu_path_counts_no_launches():
                                     "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
                                     "conv_bn_stats": 0, "conv_bn_stats_fp32": 0,
                                     "conv_bn_stats_ci8": 0, "bn_train_fwd": 0,
-                                    "bn_train_bwd": 0, "ext_calls": 0, "ext_call_ns": 0,
+                                    "bn_train_bwd": 0, "bn_torch": 0, "bn_torch_bytes": 0,
+                                    "ext_calls": 0, "ext_call_ns": 0,
                                     "tiles": 0, "tile_slots": 0}
 
 

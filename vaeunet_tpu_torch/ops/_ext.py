@@ -18,8 +18,9 @@ directly, without entering a device context.
 kernel, which its wrapper adds to where it launches the kernel and nowhere
 else, so a run can show which kernels its path went through; the host
 cost of :func:`call` while a ``torch.profiler`` session runs (otherwise it
-costs one test of the profiler's flag); and the tiled requests' tiles
-against the encoder slots they take (``inference/tiled.py``).
+costs one test of the profiler's flag); the training BNs that run on
+torch's ops, counted the same way (``ops/layers.py``); and the tiled
+requests' tiles against the encoder slots they take (``inference/tiled.py``).
 """
 
 from __future__ import annotations
@@ -106,6 +107,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # BN kernels' forward launches and backward calls (two launches each).
 # "ext_calls" and "ext_call_ns": the calls of `call` and their host
 # nanoseconds, entry to return, counted only while a profiler session runs.
+# "bn_torch" and "bn_torch_bytes": the training-mode BatchNorm forwards that
+# run on torch's ops rather than the "bn_train" kernels (``ops/layers.py``:
+# the 1x1 and strided sites, the latent and gate BNs, the remat recompute,
+# the DP group's moments) and their inputs' bytes, counted only while a
+# profiler session runs; a remat recompute counts its BNs again.
 # "tiles" and "tile_slots": the tiles of the tiled requests' grids and the
 # encoder batch slots they took, padding included.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
@@ -113,6 +119,7 @@ LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0
                             "conv_bn_stats": 0,
                             "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0,
                             "bn_train_fwd": 0, "bn_train_bwd": 0,
+                            "bn_torch": 0, "bn_torch_bytes": 0,
                             "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -122,6 +129,14 @@ _FNS: Dict[str, Callable[..., int]] = {}
 
 def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
+
+
+def count_torch_bn(x: torch.Tensor) -> None:
+    """Count a training-mode BatchNorm of `x` on torch's ops, while a
+    profiler session runs."""
+    if _torch_profiler._is_profiler_enabled:
+        LAUNCHES["bn_torch"] += 1
+        LAUNCHES["bn_torch_bytes"] += x.numel() * x.element_size()
 
 
 def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:

@@ -35,6 +35,11 @@ kernel's (s, q) at the :func:`conv3x3_bn` sites, fp32 Σx and Σx² at the
 plain sites (the strided convs, the 1x1 downsamples, the latent and gate
 BNs).  ``group`` is None outside such a step.
 
+Every training-mode BN that runs on torch's ops (the plain and remat
+branches of :meth:`BatchNorm.forward`, :meth:`BatchNorm.forward_moments`)
+adds to ``_ext.LAUNCHES``' ``bn_torch`` and ``bn_torch_bytes`` while a
+profiler session runs; the ``bn_train`` kernels count themselves.
+
 Inside the recompute of a rematerialized block (``ops/remat.py``) a
 training-mode :class:`BatchNorm` normalizes as it did in the forward but
 leaves its running statistics alone, so that they move once a step; under
@@ -52,6 +57,7 @@ from torch.autograd.function import once_differentiable
 from vaeunet_tpu_torch.ops import remat
 import torch.distributed as dist
 
+from vaeunet_tpu_torch.ops._ext import count_torch_bn
 from vaeunet_tpu_torch.ops.collectives import all_reduce_sum
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
 from vaeunet_tpu_torch.ops.pallas.bn_train import (Running, bn_train, fold_moments,
@@ -124,6 +130,8 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training and self.group is not None:
             x32 = x.float()
             return self.forward_moments(x, x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
+        if self.training:
+            count_torch_bn(x)
         if self.training and remat.bn_frozen():
             # the same call on copies of the running statistics: the same
             # output, and the update lands in the copies.  Not None instead:
@@ -141,6 +149,7 @@ class BatchNorm(nn.BatchNorm2d):
         fp32 and the output takes y's type.  Differentiable in y, s, q and
         the affine parameters.  With ``group`` set, s and q are summed over
         its ranks first and n counts all their rows."""
+        count_torch_bn(y)
         n = y.numel() // y.shape[1]
         if self.group is not None:
             s, q = all_reduce_sum(torch.stack([s, q]), self.group).unbind()
