@@ -28,6 +28,10 @@ the card, in phases that each fail the run with a non-zero exit:
    (forward bit for bit with the plain version, running statistics
    included; backward repeated bit for bit and within a bf16 ulp of the
    closed form), beside training ``F.batch_norm`` + relu and its backward;
+   the optimizer step's two kernels (clip by global norm, then AdamW) at the
+   three training configurations' parameter sets, one step bit for bit with
+   ``clip_`` + torch's AdamW, timed beside that path and torch's fused
+   AdamW after ``clip_``;
 4. the slice: the full-width resnet34 VAE-UNet (random weights from a seed,
    randomized BN statistics) answers 3 uncertainty requests on a 2848x4288
    image, 512 tiles with overlap 100, N=10 samples at T=1, plus one sampled
@@ -206,6 +210,7 @@ from vaeunet_tpu_torch.parallel.tp import shard_state
 from vaeunet_tpu_torch.ops.resize import resize_bilinear
 from vaeunet_tpu_torch.ops.pallas import bn_relu as bn_relu_mod
 from vaeunet_tpu_torch.ops.pallas import bn_train as bn_train_mod
+from vaeunet_tpu_torch.ops.pallas import clip_adamw as clip_adamw_mod
 from vaeunet_tpu_torch.ops.pallas import conv_bn_stats as conv_mod
 from vaeunet_tpu_torch.ops.pallas import reparam as reparam_mod
 from vaeunet_tpu_torch.ops.pallas import resize_mm
@@ -225,6 +230,8 @@ from vaeunet_tpu_torch.training.pretrain import (
     make_contrastive_step,
     make_pretrain_step,
 )
+from vaeunet_tpu_torch.training.state import ClippedAdamW
+from vaeunet_tpu_torch.training.state import build_model as build_train_model
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
 from vaeunet_tpu_torch.utils import figures, profiling
 from vaeunet_tpu_torch.utils.resize_tune import device_ms
@@ -1201,6 +1208,140 @@ def kernel_bn_train(table: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the training configurations whose parameter sets phase 3 steps: (label,
+# train_config's fields)
+CLIP_ADAMW_SETS = (("resnet34 VAE-UNet", {}), ("resnet50 VAE-UNet", {"backbone": "resnet50"}),
+                   ("plain UNet", {"model_type": "basic"}))
+
+
+def foreach_clip_(grads: list, max_norm: float) -> torch.Tensor:
+    """The clip's library design, a yardstick the port never calls:
+    optax's formula on torch's foreach ops, the tensors' norms, their norm,
+    then g / d * c, where (d, c) is (1, 1) under max_norm (g itself) and
+    (norm, max_norm) at or above it; no host sync -> the norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    return norm
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host time of fn() over `iters` back-to-back calls after a
+    synchronize: the enqueue alone where the device keeps up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def kernel_clip_adamw(table: dict) -> None:
+    """The optimizer step's kernels at each training configuration's
+    parameter set: one step with gradients under the clip (both paths keep
+    them) equal bit for bit to ``clip_`` + torch's foreach AdamW, parameters
+    and moments; a step that clips, its norm within a relative 2e-7 of the
+    Python sum's.  Timed with gradients under the clip (32 bytes an element,
+    the bound): the step through the wrapper ("w", ``ClippedAdamW.step``,
+    back to back), its host enqueue alone, the two launches alone ("a"), a
+    CUDA graph of them ("d"), the norm launch's graph alone; today's path
+    (``clip_`` + torch's foreach AdamW) and the library design,
+    :func:`foreach_clip_` + torch's fused AdamW (never called by the port),
+    each back to back and its host enqueue alone."""
+    for label, fields in CLIP_ADAMW_SETS:
+        config = train_config(**fields)
+        ours = create_train_state(config, seed=0, device="cuda").optimizer
+        params = ours.params
+        elems = sum(p.numel() for p in params)
+        twins = {}
+        for kind in ("ref", "lib"):
+            ps = [torch.nn.Parameter(p.detach().clone()) for p in params]
+            twins[kind] = ClippedAdamW(ps, config)
+        ref, lib = twins["ref"], twins["lib"]
+        lib_adamw = torch.optim.AdamW(lib.params, lr=config.learning_rate, betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=config.weight_decay, fused=True)
+
+        def library():
+            norm = foreach_clip_([p.grad for p in lib.params], lib.max_norm)
+            lib_adamw.step()
+            return norm
+
+        g = torch.Generator(device="cuda").manual_seed(21)
+        grads = [torch.empty_like(p).normal_(generator=g) for p in params]
+        for scale, what in ((1e-5, "keeps"), (1e-3, "clips")):
+            for o in (ours, ref, lib):
+                for p, gr in zip(o.params, grads):
+                    p.grad = gr * scale
+            norm = ours.step()
+            own = ref.clip_()
+            ref.adamw.step()
+            lib_norm = library()
+            torch.cuda.synchronize()
+            n, o, ln = norm.item(), own.item(), lib_norm.item()
+            if what == "keeps":
+                same = all(torch.equal(p, q) and torch.equal(ours.adamw.state[p][k],
+                                                             ref.adamw.state[q][k])
+                           for p, q in zip(params, ref.params)
+                           for k in ("exp_avg", "exp_avg_sq"))
+                check(same and n < 1.0, f"clip_adamw {label}: a step under the clip differs "
+                      f"from clip_ + torch's AdamW (norm {n})")
+            else:
+                check(n >= 1.0 and abs(n - o) <= 2e-7 * o,
+                      f"clip_adamw {label}: norm {n} against the Python sum's {o}")
+            # the library design is a yardstick: its norm is the same sum in
+            # another order, its fused AdamW rounds otherwise
+            lib_gap = max((p - q).abs().max().item() for p, q in zip(lib.params, ref.params))
+            check(abs(ln - o) <= 1e-6 * o and lib_gap <= 1e-6,
+                  f"clip_adamw {label}: the library design's norm {ln} against {o}, its "
+                  f"parameters {lib_gap} from today's path's")
+        for o in (ours, ref, lib):           # under the clip again: the timed steps
+            for p, gr in zip(o.params, grads):
+                p.grad = gr * 1e-5
+        state = ours.kernel_state()
+        plan = state.plan
+        norm = clip_adamw_mod.norm(plan)
+        group = ours.adamw.param_groups[0]
+        state.count_step(group)
+        clip_adamw_mod.update(plan, norm, group, ours.max_norm)
+        n_args = clip_adamw_mod.norm_args(plan, norm)
+        u_args = clip_adamw_mod.update_args(plan, norm, group, ours.max_norm)
+
+        def launches_alone():
+            _ext.call("clip_adamw", clip_adamw_mod.NORM_FN, plan.device, *n_args)
+            _ext.call("clip_adamw", clip_adamw_mod.UPDATE_FN, plan.device, *u_args)
+
+        def today():
+            ref.clip_()
+            ref.adamw.step()
+
+        t = paired_ms({"w": ours.step, "a": launches_alone, "lib": library}, 20)
+        host = host_ms(ours.step)
+        lib_host = host_ms(library)
+        d = device_ms(launches_alone, 10, 10)
+        d_norm = device_ms(lambda: _ext.call("clip_adamw", clip_adamw_mod.NORM_FN, plan.device,
+                                             *n_args), 10, 10)
+        plain = time_ms(today, 5)
+        plain_host = host_ms(today, 5)
+        bnd, _ = bound_ms(32 * elems, 0)
+        bnd_norm, _ = bound_ms(4 * elems, 0)
+        log(f"clip_adamw {label}: {len(params)} tensors, {elems} elements; a step under the clip "
+            f"bit for bit with clip_ + torch's AdamW, a clipping one's norm within 2e-7 of the "
+            f"Python sum's  w {t['w']:.4f} ms (host enqueue {host:.4f} ms)  a {t['a']:.4f} ms  "
+            f"d {d:.4f} ms ({bnd / d:.0%} of the bound)  norm launch d {d_norm:.4f} ms "
+            f"({bnd_norm / d_norm:.0%} of its {bnd_norm:.4f} ms)  today's path {plain:.4f} ms "
+            f"(host {plain_host:.4f} ms)  foreach clip + fused AdamW {t['lib']:.4f} ms (host "
+            f"{lib_host:.4f} ms)  bound {bnd:.4f} ms (bytes, 32 an element)  grid: up to "
+            f"{plan.blocks} blocks")
+        if not fields:
+            _record(table, "clip_adamw", err=0.0, ms=t["a"], wrapper_ms=t["w"], device_ms=d,
+                    plain_ms=plain, library_ms=t["lib"], bound_ms=bnd, bound_by="bytes",
+                    shape=f"{label}: {len(params)} tensors, {elems} elements")
+        del ours, ref, lib, lib_adamw, twins, params, grads, state, plan, norm
+        torch.cuda.empty_cache()
+
+
 def phase_kernels() -> dict:
     table: dict = {}
     kernel_bn_relu(table)
@@ -1212,6 +1353,7 @@ def phase_kernels() -> dict:
     kernel_resize_bwd(table)
     kernel_resize_bwd_c1(table)
     kernel_bn_train(table)
+    kernel_clip_adamw(table)
     return table
 
 
@@ -1341,10 +1483,30 @@ def launches(times: int = 1, **per_run) -> dict:
     return {k: per_run.get(k, 0) * times for k in _ext.launch_counts()}
 
 
+_PARAM_ELEMS: dict = {}
+
+
+def param_elems(**fields) -> int:
+    """The parameters' elements of train_config(**fields)'s model (built
+    once, on the CPU)."""
+    key = tuple(sorted(fields.items()))
+    if key not in _PARAM_ELEMS:
+        model = build_train_model(train_config(**fields), device="cpu")
+        _PARAM_ELEMS[key] = sum(p.numel() for p in model.parameters())
+    return _PARAM_ELEMS[key]
+
+
+def optimizer_launches(elems: int, steps: int = 1) -> dict:
+    """`steps` optimizer steps on the card of a model of `elems` parameter
+    elements, each with a gradient: a norm and an update launch a step."""
+    return launches(steps, clip_adamw_norm=1, clip_adamw_update=1, clip_adamw_elems=elems)
+
+
 # the wrappers' counters, one `_ext.call` each ("resize_row",
 # "resize_bwd_row" and "conv_bn_stats_fp32" count a share of their wrapper's)
 CALL_COUNTERS = ("normal", "reparam", "bn_relu", "resize", "resize_bwd", "conv_bn_stats",
-                 "conv_bn_stats_ci8", "bn_train_fwd", "bn_train_bwd")
+                 "conv_bn_stats_ci8", "bn_train_fwd", "bn_train_bwd", "clip_adamw_norm",
+                 "clip_adamw_update")
 
 
 def ext_calls(counts: dict) -> int:
@@ -1361,10 +1523,13 @@ def expected_train_launches(steps: int, amp: bool = True) -> dict:
     ReLU take the training BN kernels once forward and once backward; eval
     BN+ReLU and the fused draw are not on this path.  The logits' resize
     and its gradient take the row kernels, and without `amp` every conv
-    launch the fp32 kernel."""
-    return launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
-                    bn_train_fwd=29 + 8, bn_train_bwd=29 + 8, resize=5, resize_row=1,
-                    resize_bwd=5, resize_bwd_row=1, normal=1)
+    launch the fp32 kernel.  The optimizer step: its two kernels over every
+    parameter."""
+    return add_counts(
+        launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
+                 bn_train_fwd=29 + 8, bn_train_bwd=29 + 8, resize=5, resize_row=1,
+                 resize_bwd=5, resize_bwd_row=1, normal=1),
+        optimizer_launches(param_elems(), steps))
 
 
 def first_step_moved_everything(model, before: dict) -> None:
@@ -1612,7 +1777,8 @@ NEW_WARMUP_STEPS, NEW_TIMED_STEPS = 3, 5
 def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
     """The 512^2 batch-16 step of `config`: the first step moves every
     parameter and leaves it finite; 3 warm and 5 timed steps, whose launch
-    counts must equal `per_step` x 5.  -> (state, counts, images, masks)."""
+    counts must equal `per_step` x 5 and the optimizer's two kernels a step
+    over every parameter.  -> (state, counts, images, masks)."""
     state = create_train_state(config, seed=0, device="cuda")
     step = make_train_step(config, state.model)
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1645,7 +1811,8 @@ def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
         f"all {[round(t, 4) for t in times]}  "
         f"{TRAIN_BATCH * NEW_TIMED_STEPS / sum(times):.1f} img/s  peak memory {peak:.2f} GiB  "
         f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
-    expected = launches(NEW_TIMED_STEPS, **per_step)
+    expected = add_counts(launches(NEW_TIMED_STEPS, **per_step), optimizer_launches(
+        sum(p.numel() for p in state.model.parameters()), NEW_TIMED_STEPS))
     log(f"{label} launches over {NEW_TIMED_STEPS} steps: {counts}  expected {expected}")
     check(counts == expected, f"{label} launch counts {counts} differ from the code's {expected}")
     return state, counts, images, masks
@@ -1886,8 +2053,9 @@ def augment_checks(images: torch.Tensor, masks: torch.Tensor) -> None:
 
 def loop_launches(report: dict, val_batches: int) -> dict:
     steps, validations = len(report["step_times"]), len(report["val_times"])
-    per_train, per_eval = launches(steps, **TRAIN_STEP_LAUNCHES), launches(
-        validations * val_batches, **EVAL_STEP_LAUNCHES)
+    per_train = add_counts(launches(steps, **TRAIN_STEP_LAUNCHES),
+                           optimizer_launches(param_elems(), steps))
+    per_eval = launches(validations * val_batches, **EVAL_STEP_LAUNCHES)
     return {k: per_train[k] + per_eval[k] for k in per_train}
 
 
@@ -2420,11 +2588,11 @@ def rank_parallel(ctx) -> dict:
         grads = {n: (collectives.gather(p.grad, 0, tp_ctx.model) if n in names
                      else p.grad.clone()) for n, p in state.model.named_parameters()}
         full = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
-        norm = state.optimizer.clip_()
-        state.optimizer.adamw.step()
+        norm = state.optimizer.step()
         return aux, grads, full.item(), norm.item()
 
     (aux, grads, full_norm, norm), out["tp_counts"], _ = counted(tp_step)
+    out["tp_elems"] = sum(p.numel() for p in state.model.parameters())
     params = dict(state.model.named_parameters())
     whole = {k: (collectives.gather(params[k].detach(), 0, tp_ctx.model) if k in names else v)
              for k, v in state.model.state_dict().items()}
@@ -2619,10 +2787,15 @@ def phase_parallel() -> dict:
     fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, bn_train_fwd=37, bn_train_bwd=37,
                    resize=5, resize_row=1, resize_bwd=5,
                    resize_bwd_row=1)   # the steps on fed noise draw none
+    fed_step = add_counts(fed, optimizer_launches(param_elems(), 1))
     for r in ranks:
-        check(r["dp_counts"] == per_rank and r["explicit_counts"] == fed == r["tp_counts"],
+        # TP's step: its own norm (a collective), the update launch over its shards
+        tp_step = add_counts(fed, launches(1, clip_adamw_update=1,
+                                           clip_adamw_elems=r["tp_elems"]))
+        check(r["dp_counts"] == per_rank and r["explicit_counts"] == fed_step
+              and r["tp_counts"] == tp_step,
               f"rank {r['rank']}: step launches {r['dp_counts']} / {r['explicit_counts']} / "
-              f"{r['tp_counts']} differ from the code's {per_rank} / {fed}")
+              f"{r['tp_counts']} differ from the code's {per_rank} / {fed_step} / {tp_step}")
     del state
     torch.cuda.empty_cache()
 
@@ -2755,6 +2928,7 @@ def phase_pretrain(root: Path) -> dict:
     smi = nvidia_smi_line()
     t_phase = time.perf_counter()
     total = launches()
+    elems = {}
     g = torch.Generator(device="cuda").manual_seed(13)
     images = torch.rand((PRETRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3), device="cuda", generator=g)
     for pretext in ("masked", "contrastive"):
@@ -2768,7 +2942,9 @@ def phase_pretrain(root: Path) -> dict:
             return [step(state, images)[1].item() for _ in range(PRETRAIN_STEPS)]
 
         losses, counts, sec = counted(run)
-        expected = launches(PRETRAIN_STEPS, **PRETEXT_LAUNCHES[pretext])
+        elems[pretext] = sum(p.numel() for p in model.parameters())
+        expected = add_counts(launches(PRETRAIN_STEPS, **PRETEXT_LAUNCHES[pretext]),
+                              optimizer_launches(elems[pretext], PRETRAIN_STEPS))
         still = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
         finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
         log(f"{pretext} pretext, resnet34 512^2 b{PRETRAIN_BATCH} bf16: {PRETRAIN_STEPS} steps "
@@ -2806,8 +2982,10 @@ def phase_pretrain(root: Path) -> dict:
             size = Path(trace_path).stat().st_size
             # the one traced step counts its calls and their host time, and
             # the training BNs it ran on torch's ops with their inputs' bytes
-            expected = launches(6, **PRETEXT_LAUNCHES[pretext])
-            expected["ext_calls"] = ext_calls(launches(**PRETEXT_LAUNCHES[pretext]))
+            one = add_counts(launches(**PRETEXT_LAUNCHES[pretext]),
+                             optimizer_launches(elems[pretext]))
+            expected = launches(6, **one)
+            expected["ext_calls"] = ext_calls(one)
             expected["bn_torch"] = len(traced)
             expected["bn_torch_bytes"] = sum(traced)
             got = {k: v for k, v in counts.items() if k != "ext_call_ns"}
@@ -2835,7 +3013,8 @@ def phase_pretrain(root: Path) -> dict:
         path, counts, sec = counted(lambda: pretrain_cli.main(
             ["--data-dir", data, "--scale", str(LOOP_SCALE), "--patch-size", str(TRAIN_HW),
              "--batch-size", str(PRETRAIN_BATCH), "--epochs", "1", "--out", str(out)]))
-        expected = launches(steps, **PRETEXT_LAUNCHES["masked"])
+        expected = add_counts(launches(steps, **PRETEXT_LAUNCHES["masked"]),
+                              optimizer_launches(elems["masked"], steps))
         log(f"cli.pretrain: one epoch of {steps} masked steps on {len(ds)} patches in "
             f"{sec:.1f} s (dataset and cache included); {path}; launches {counts}  expected "
             f"{expected}")
@@ -3050,7 +3229,8 @@ def phase_ensemble_tools(root: Path) -> dict:
     log(f"sweep: {SWEEP_TRIALS} trials in {sweep_s:.1f} s, launches {counts}  [{smi}]")
     check(len(records) == len(results) == SWEEP_TRIALS
           and all(r["status"] == "ok" for r in records), f"sweep records {records}")
-    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize_bwd", "normal", "bn_relu"):
+    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize_bwd", "normal", "bn_relu",
+              "clip_adamw_norm", "clip_adamw_update"):
         check(counts[k] > 0, f"the sweep's training launched no {k}")
 
     # 6. the two benchmark entry points at their defaults
@@ -3099,9 +3279,12 @@ KERNELS = (
     # no Pallas kernel: the JAX package leaves the training BN to XLA
     ("bn_train_fwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
     ("bn_train_bwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
+    # no Pallas kernel: the JAX package leaves optax's clip and adamw to XLA
+    ("clip_adamw", "vaeunet_tpu_torch/csrc/clip_adamw.cu", "none"),
 )
 # entry of the kernels line -> its launch counter where the names differ
-COUNTERS = {"resize_c1": "resize_row", "resize_bwd_c1": "resize_bwd_row"}
+COUNTERS = {"resize_c1": "resize_row", "resize_bwd_c1": "resize_bwd_row",
+            "clip_adamw": "clip_adamw_update"}
 # wrapper -> the counter of its second kernel, whose launches it also counts
 OTHER_KERNEL = {"resize": "resize_row", "resize_bwd": "resize_bwd_row",
                 "conv_bn_stats": "conv_bn_stats_fp32"}

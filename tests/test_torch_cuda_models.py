@@ -166,7 +166,9 @@ def test_gradient_through_a_checkpointed_block_with_kernels(cuda, policy, dtype)
 ])
 def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
     """A bf16 step at 64^2, batch 2: every parameter gets a finite
-    gradient and the kernels launch as often as the code says."""
+    gradient and the kernels launch as often as the code says; the
+    optimizer step is one launch of each of its two kernels over every
+    parameter's elements."""
     fields = dict(unet=dict(model_type="basic"),
                   unet_bilinear=dict(model_type="basic", bilinear=True),
                   resnet50_ds=dict(backbone="resnet50", deep_supervision=True))[kind]
@@ -184,6 +186,13 @@ def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
         assert counts[k] == v, (k, counts)
     for name, p in state.model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert counts["clip_adamw_norm"] == counts["clip_adamw_update"] == 0
+    state.optimizer.step()
+    torch.cuda.synchronize()
+    after = _ext.launch_counts()
+    assert {k: after[k] - counts[k] for k in after if after[k] != counts[k]} == {
+        "clip_adamw_norm": 1, "clip_adamw_update": 1,
+        "clip_adamw_elems": sum(p.numel() for p in state.model.parameters())}
 
 
 @pytest.mark.parametrize("kind,bn_torch", [("resnet50", 57), ("resnet50_ds", 57)])

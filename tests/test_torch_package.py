@@ -20,6 +20,8 @@ from vaeunet_tpu_torch import (
 )
 from vaeunet_tpu_torch.ops import _ext
 from vaeunet_tpu_torch.ops.pallas import bn_relu, conv_bn_stats, reparam, resize_mm
+from vaeunet_tpu_torch.training import TrainConfig
+from vaeunet_tpu_torch.training.state import ClippedAdamW
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -162,11 +164,14 @@ def test_cpu_path_counts_no_launches():
     resize_mm.resize(x, (16, 16), True).sum().backward()
     y, s, q = conv_bn_stats.conv3x3_bn_stats(x, torch.randn(5, 4, 3, 3))
     (y.sum() + s.sum() + q.sum()).backward()
+    ClippedAdamW([x], TrainConfig()).step()               # the CPU's optimizer step
     assert _ext.launch_counts() == {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
                                     "resize_row": 0, "resize_bwd": 0, "resize_bwd_row": 0,
                                     "conv_bn_stats": 0, "conv_bn_stats_fp32": 0,
                                     "conv_bn_stats_ci8": 0, "bn_train_fwd": 0,
-                                    "bn_train_bwd": 0, "bn_torch": 0, "bn_torch_bytes": 0,
+                                    "bn_train_bwd": 0, "clip_adamw_norm": 0,
+                                    "clip_adamw_update": 0, "clip_adamw_elems": 0,
+                                    "bn_torch": 0, "bn_torch_bytes": 0,
                                     "ext_calls": 0, "ext_call_ns": 0,
                                     "tiles": 0, "tile_slots": 0}
 

@@ -16,7 +16,8 @@ directly, without entering a device context.
 
 ``LAUNCHES`` is the program's table of counters, plain integers: one per
 kernel, which its wrapper adds to where it launches the kernel and nowhere
-else, so a run can show which kernels its path went through; the host
+else, so a run can show which kernels its path went through (and the
+elements the optimizer's kernels stepped); the host
 cost of :func:`call` while a ``torch.profiler`` session runs (otherwise it
 costs one test of the profiler's flag); the training BNs that run on
 torch's ops, counted the same way (``ops/layers.py``); and the tiled
@@ -90,6 +91,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vaeunet_resize_bwd_scalar_f32": _RESIZE_ARGS,
         "vaeunet_resize_bwd_scalar_bf16": _RESIZE_ARGS,
     },
+    "clip_adamw": {
+        # table, tensors, partial, ticket, norm, blocks
+        "vaeunet_clip_adamw_norm": [_P, _I, _P, _P, _P, _I, _P],
+        # table, scalars, tensors, norm; 1 - lr wd, 1 - b1, b2, 1 - b2, eps,
+        # max_norm; blocks
+        "vaeunet_clip_adamw_update": [_P, _P, _I, _P] + [_F] * 6 + [_I, _P],
+    },
     "conv_bn_stats": {
         "vaeunet_conv3x3_stats_f32": _CONV_F32_ARGS,
         "vaeunet_conv3x3_stats_bf16_wgmma": _CONV_ARGS,
@@ -105,6 +113,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # "conv_bn_stats_ci8" those of the bf16 Ci <= 8 kernel (not in
 # "conv_bn_stats").  "bn_train_fwd" and "bn_train_bwd" count the training
 # BN kernels' forward launches and backward calls (two launches each).
+# "clip_adamw_norm" and "clip_adamw_update" count the optimizer step's two
+# launches (``ops/pallas/clip_adamw.py``), "clip_adamw_elems" the elements
+# the update launches stepped.
 # "ext_calls" and "ext_call_ns": the calls of `call` and their host
 # nanoseconds, entry to return, counted only while a profiler session runs.
 # "bn_torch" and "bn_torch_bytes": the training-mode BatchNorm forwards that
@@ -119,6 +130,7 @@ LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0
                             "conv_bn_stats": 0,
                             "conv_bn_stats_fp32": 0, "conv_bn_stats_ci8": 0,
                             "bn_train_fwd": 0, "bn_train_bwd": 0,
+                            "clip_adamw_norm": 0, "clip_adamw_update": 0, "clip_adamw_elems": 0,
                             "bn_torch": 0, "bn_torch_bytes": 0,
                             "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 

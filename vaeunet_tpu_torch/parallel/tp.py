@@ -155,7 +155,10 @@ class ShardedClippedAdamW(ClippedAdamW):
         self.sharded = {id(p) for p in sharded}
         self.group = group
 
-    def clip_(self) -> torch.Tensor:
+    def global_norm(self) -> torch.Tensor:
+        """The replicated gradients averaged over the group in place; -> the
+        norm of the whole model's gradients, the sharded ones summed over
+        the group."""
         parts = {True: [], False: []}
         for p in self.params:
             if p.grad is not None:
@@ -164,11 +167,12 @@ class ShardedClippedAdamW(ClippedAdamW):
         zero = torch.zeros((), device=self.params[0].device)
         local = sum((torch.sum(g.float() * g.float()) for g in parts[False]), zero)
         shard = sum((torch.sum(g.float() * g.float()) for g in parts[True]), zero)
-        norm = torch.sqrt(local + collectives.all_reduce_sum(shard, self.group))
-        keep = norm < self.max_norm
-        for g in parts[False] + parts[True]:
-            g.copy_(torch.where(keep, g, g / norm * self.max_norm))
-        return norm
+        return torch.sqrt(local + collectives.all_reduce_sum(shard, self.group))
+
+    def kernel_norm(self, plan) -> torch.Tensor:
+        """:meth:`global_norm`: the norm takes a collective, so the update
+        kernel clips by the norm of torch's ops."""
+        return self.global_norm()
 
 
 def shard_state(state: TrainState, config: TrainConfig, ctx: ParallelContext,

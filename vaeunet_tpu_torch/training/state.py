@@ -17,7 +17,12 @@ unmasked ``adamw`` decays every leaf.  The learning rate lives in the
 param groups, so a host-side schedule changes it between steps.
 ``ClippedAdamW.state_dict`` / ``load_state_dict`` carry AdamW's state and
 the clip norm, so a restored optimizer takes the step an unbroken one
-would.
+would.  On CUDA parameters the step is two launches of
+``ops/pallas/clip_adamw.py``'s kernels, which compute what ``clip_`` and
+torch's AdamW compute there (the norm's sums in another order) on torch's
+AdamW state, made and counted here as torch makes and counts it, so a
+checkpoint of either path resumes on the other; CPU parameters take
+``clip_`` and ``self.adamw.step()``, the plain version.
 
 :func:`build_model` builds the config's model (``model_type`` 'resnet':
 the VAE-UNet; 'basic': the plain UNet) and honours or refuses each of its
@@ -31,8 +36,9 @@ plain UNet, the port refuses it).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from vaeunet_tpu_torch.compat.jax_weights import load_jax_variables
@@ -40,8 +46,56 @@ from vaeunet_tpu_torch.device import resolve_device
 from vaeunet_tpu_torch.models.unet import UNet, build_unet
 from vaeunet_tpu_torch.models.vae_unet import UNetResNet, build_model as build_vae_unet
 from vaeunet_tpu_torch.ops import remat
+from vaeunet_tpu_torch.ops.pallas import clip_adamw
 from vaeunet_tpu_torch.training.config import TrainConfig
 from vaeunet_tpu_torch.utils.profiling import span
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype of torch's AdamW ``step`` (``optimizer._get_scalar_dtype``)."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
+class _KernelState:
+    """What the kernels' steps keep between steps for one set of parameters
+    with gradients: the launches' plan, and a mirror of the AdamW ``step``
+    counts of its tensors for the bias corrections, with each ``step``
+    tensor's memory to write the count back into.  AdamW's state is made
+    as torch's ``_init_group`` makes it: ``step`` a CPU scalar of its own,
+    the moments zeros in the parameter's layout."""
+
+    def __init__(self, adamw: torch.optim.Optimizer, params: Sequence[torch.Tensor],
+                 active: List[int]):
+        ps = [params[i] for i in active]
+        states = []
+        for p in ps:
+            state = adamw.state[p]
+            if len(state) == 0:
+                state["step"] = torch.tensor(0.0, dtype=_scalar_dtype())
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            elif state["step"].device.type != "cpu":
+                raise ValueError(f"clip_adamw: a step count on {state['step'].device}, not the "
+                                 "CPU")
+            states.append(state)
+        self.plan = clip_adamw.Plan(ps, [s["exp_avg"] for s in states],
+                                    [s["exp_avg_sq"] for s in states])
+        self.active = active
+        self.param_ptrs = [p.data_ptr() for p in ps]
+        self.step_views = [s["step"].numpy() for s in states]
+        self.steps = np.array([float(s["step"]) for s in states])
+
+    def fits(self, params: Sequence[torch.Tensor], active: List[int]) -> bool:
+        return active == self.active and [params[i].data_ptr() for i in active] == self.param_ptrs
+
+    def count_step(self, group: dict) -> None:
+        """Every tensor's step + 1, in its ``step`` tensor too, and the bias
+        corrections at it into the plan."""
+        self.steps += 1
+        for view, s in zip(self.step_views, self.steps):
+            view[...] = s
+        beta1, beta2 = group["betas"]
+        self.plan.set_scalars(self.steps, beta1, beta2, float(group["lr"]))
 
 
 class ClippedAdamW:
@@ -53,23 +107,77 @@ class ClippedAdamW:
         self.adamw = torch.optim.AdamW(self.params, lr=config.learning_rate,
                                        betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=config.weight_decay)
+        # the kernels' state, in a box the hooks clear (without holding this
+        # object) when torch's step or a load changes the counts it mirrors
+        box: List[Optional[_KernelState]] = [None]
+        self._kernel_box = box
+
+        def forget(*_args, **_kwargs):
+            box[0] = None
+
+        self.adamw.register_step_post_hook(forget)
+        self.adamw.register_load_state_dict_post_hook(forget)
 
     @property
     def param_groups(self):
         return self.adamw.param_groups
 
+    def global_norm(self) -> torch.Tensor:
+        """||g|| over the gradients, as a device scalar."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+
     def clip_(self) -> torch.Tensor:
         """Scale the gradients in place to global norm <= max_norm; -> the
         norm before clipping.  No host sync: the choice is a ``where``."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+        norm = self.global_norm()
         keep = norm < self.max_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * self.max_norm))
+        for p in self.params:
+            if p.grad is not None:
+                p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * self.max_norm))
         return norm
 
     def step(self) -> torch.Tensor:
-        """Clip, then AdamW (spans ``train.clip``, ``train.adamw``)."""
+        """Clip, then AdamW -> the norm before clipping: CUDA parameters
+        take :meth:`kernel_step`, others :meth:`plain_step`."""
+        if not self.params or self.params[0].device.type != "cuda":
+            return self.plain_step()
+        return self.kernel_step()
+
+    def kernel_step(self) -> torch.Tensor:
+        """The step on the kernels (spans ``train.clip``: the gradients'
+        table and :meth:`kernel_norm`; ``train.adamw``: the step counts and
+        the update launch) -> the norm before clipping."""
+        with span("train.clip"):
+            state = self.kernel_state()
+            norm = self.kernel_norm(state.plan)
+        with span("train.adamw"):
+            group = self.adamw.param_groups[0]
+            state.count_step(group)
+            clip_adamw.update(state.plan, norm, group, self.max_norm)
+        return norm
+
+    def kernel_state(self) -> _KernelState:
+        """The kernels' state for the parameters that have gradients, made
+        anew when they or a parameter's storage changed, with this step's
+        gradients in its table."""
+        if len(self.adamw.param_groups) != 1:
+            raise ValueError("clip_adamw takes one param group")
+        clip_adamw.check_group(self.adamw.param_groups[0])
+        grads = [p.grad for p in self.params]
+        active = [i for i, g in enumerate(grads) if g is not None]
+        state = self._kernel_box[0]
+        if state is None or not state.fits(self.params, active):
+            state = self._kernel_box[0] = _KernelState(self.adamw, self.params, active)
+        state.plan.set_grads([grads[i] for i in active])
+        return state
+
+    def kernel_norm(self, plan: clip_adamw.Plan) -> torch.Tensor:
+        """The norm the update clips by: the norm kernel's."""
+        return clip_adamw.norm(plan)
+
+    def plain_step(self) -> torch.Tensor:
+        """:meth:`clip_`, then torch's AdamW, under the same spans."""
         with span("train.clip"):
             norm = self.clip_()
         with span("train.adamw"):

@@ -249,6 +249,7 @@ FAMILIES = (
                                          "resize_bilinear_bwd_kernel")),
     ("resize", ("resize_tiled_kernel", "resize_row_kernel", "resize_bilinear_kernel")),
     ("normal/reparam", ("normal_kernel", "reparam_kernel")),
+    ("optimizer (clip_adamw, this port's kernel)", ("clip_adamw_",)),
     ("optimizer (foreach AdamW, clip)", ("multi_tensor_apply", "adam")),
     ("batch_norm (gate, residual)", ("batch_norm", "bn_fw_inf")),
     ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "implicit_gemm", "cutlass", "sm90_",
