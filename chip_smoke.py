@@ -41,11 +41,11 @@ the card, in phases that each fail the run with a non-zero exit:
    noise, TF32 off: samples atol 2e-4, mu/logvar atol 1e-4;
 6. training: the flagship VAE-UNet (random weights from a seed) at 512^2,
    batch 16, bf16, no accumulation: the first step must change every
-   parameter and leave it finite, then 3 warm-up and 10 timed steps, whose
+   parameter and leave it finite, then 3 warm-up and 10 counted steps, whose
    kernel launch counts are held against the counts the code implies, and
    one eval step on 16 images with a ``valid`` row mask;
 7. the same step in fp32 (``amp=False``, TF32 off) at full width: 2 warm
-   and 5 timed steps with their launch counts, p50, img/s and peak memory;
+   and 5 counted steps with their launch counts and peak memory;
 8. one fp32 train step (TF32 off) of the full-width resnet34 model at
    128^2, batch 2, accumulation 2, on the card and on the CPU from the same
    weights, batch and noise: loss atol 1e-5, running statistics atol 1e-4
@@ -57,7 +57,7 @@ the card, in phases that each fail the run with a non-zero exit:
    2848x4288 (align_corners=False), the threshold; launch counts held; then
    the card against the CPU at 3x256x256, both ``bilinear`` settings;
 10. the plain UNet's 512^2 batch-16 bf16 step, both ``bilinear`` settings:
-   every parameter moves, 3 warm and 5 timed steps with their launch
+   every parameter moves, 3 warm and 5 counted steps with their launch
    counts, one eval step, one fp32 step card vs CPU at 128^2;
 11. the same for the resnet50 VAE-UNet with deep supervision;
 12. remat: one fp32 resnet34 step at 256^2 batch 4 without remat, with
@@ -234,7 +234,6 @@ from vaeunet_tpu_torch.training.state import ClippedAdamW
 from vaeunet_tpu_torch.training.state import build_model as build_train_model
 from vaeunet_tpu_torch.training.step import forward_loss, to_model_layout
 from vaeunet_tpu_torch.utils import figures, profiling
-from vaeunet_tpu_torch.utils.resize_tune import device_ms
 from vaeunet_tpu_torch.utils.tracking import Tracker
 from vaeunet_tpu_torch.vae_utils import to_nchw
 
@@ -252,10 +251,6 @@ N_REQUESTS = 3
 NORMAL_OPS = 100 / 4 + 56 / 2
 BN_RELU_OPS = 3               # mul, add, max
 RESIZE_OPS = 9                # 3 lerps of (sub, mul, mul, add) sharing the (1 - lambda)
-
-
-# numbers one phase reports for a later one to print beside its own
-SUMMARY: dict = {}
 
 
 def log(msg: str) -> None:
@@ -288,6 +283,22 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, launches: int = 50, replays: int = 20) -> float:
+    """Device time of one fn(): `launches` of them captured in a CUDA graph
+    and replayed, so that no host work sits between two launches (at a few
+    microseconds a kernel the host cannot enqueue as fast as the card runs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, replays) / launches
 
 
 def iters_for(nbytes: float) -> int:
@@ -1406,16 +1417,12 @@ def phase_slice(model) -> dict:
     small = torch.rand((512, 512, 3), device="cuda", generator=g)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
     _ext.reset_launch_counts()
     for r in range(N_REQUESTS):
-        t0 = time.perf_counter()
         samples, mu, logvar = segmentation_distribution(
             model, image, torch.Generator().manual_seed(100 + r), num_samples=N_SAMPLES,
             temperature=TEMPERATURE, patch_size=PATCH, tile_batch=TILE_BATCH, overlap=OVERLAP)
         maps = uncertainty_maps(samples)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         check(tuple(samples.shape) == (N_SAMPLES, *IMAGE_HW, 1), f"samples {samples.shape}")
         check(bool(torch.isfinite(samples).all()), "non-finite samples")
         check(bool(((samples >= 0) & (samples <= 1)).all()), "samples outside [0, 1]")
@@ -1424,7 +1431,7 @@ def phase_slice(model) -> dict:
         for k, v in maps.items():
             check(tuple(v.shape) == (*IMAGE_HW, 1) and bool(torch.isfinite(v).all()),
                   f"uncertainty map {k}")
-        log(f"request {r}: {times[-1]:.3f} s  mean p {maps['mean'].mean().item():.4f}  "
+        log(f"request {r}: mean p {maps['mean'].mean().item():.4f}  "
             f"mean std {maps['std'].mean().item():.4f}  "
             f"sample spread {(samples[0] - samples[1]).abs().max().item():.4f}")
         del samples, maps
@@ -1436,9 +1443,7 @@ def phase_slice(model) -> dict:
     check(mask.dtype == torch.bool and tuple(mask.shape) == (512, 512, 1), "predict_image mask")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = expected_launches()
-    log(f"requests: p50 {statistics.median(times):.3f} s  max {max(times):.3f} s  "
-        f"all {[round(t, 3) for t in times]}  (fp32, TF32 off)")
-    log(f"peak memory: {peak:.2f} GiB")
+    log(f"peak memory: {peak:.2f} GiB  (fp32, TF32 off)")
     log(f"launches: {counts}  expected {expected}")
     for k in ("bn_relu", "resize", "resize_row", "reparam", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the serving path")
@@ -1466,7 +1471,7 @@ def phase_parity(model) -> None:
 # ----- phase 6 -------------------------------------------------------------
 
 TRAIN_HW, TRAIN_BATCH = 512, 16
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+WARMUP_STEPS, COUNTED_STEPS = 3, 10
 
 
 def train_config(**kw) -> TrainConfig:
@@ -1573,26 +1578,16 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launch_counts()
-    times, losses = [], []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
+    losses = []
+    for _ in range(COUNTED_STEPS):
         state, aux = step(state, images, masks, beta)
-        losses.append(aux["loss"].item())          # a host fetch, as bench.py ends a step
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        losses.append(aux["loss"].item())
     counts = _ext.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"losses {losses}")
-    p50 = statistics.median(times)
-    SUMMARY["bare_step_p50"] = p50
-    img_s = TRAIN_BATCH * TIMED_STEPS / sum(times)
-    log(f"train steps: p50 {p50:.4f} s  max {max(times):.4f} s  all "
-        f"{[round(t, 4) for t in times]}  loss {losses[0]:.5f} -> {losses[-1]:.5f}")
-    log(f"train peak memory: {peak:.2f} GiB")
-    log(json.dumps({"metric": "images_per_sec_per_chip_512sq_vaeunet_train_torch",
-                    "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
-    expected = expected_train_launches(TIMED_STEPS)
-    log(f"train launches over {TIMED_STEPS} steps: {counts}  expected {expected}")
+    log(f"train steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}  peak memory {peak:.2f} GiB")
+    expected = expected_train_launches(COUNTED_STEPS)
+    log(f"train launches over {COUNTED_STEPS} steps: {counts}  expected {expected}")
     for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize", "resize_row",
               "resize_bwd", "resize_bwd_row", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the training path")
@@ -1619,7 +1614,7 @@ def phase_train() -> dict:
 
 # ----- phase 7 -------------------------------------------------------------
 
-FP32_WARMUP_STEPS, FP32_TIMED_STEPS = 2, 5
+FP32_WARMUP_STEPS, FP32_COUNTED_STEPS = 2, 5
 
 
 def phase_train_fp32() -> dict:
@@ -1638,25 +1633,17 @@ def phase_train_fp32() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launch_counts()
-    times, losses = [], []
-    for _ in range(FP32_TIMED_STEPS):
-        t0 = time.perf_counter()
+    losses = []
+    for _ in range(FP32_COUNTED_STEPS):
         state, aux = step(state, images, masks, 0.001)
         losses.append(aux["loss"].item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
     counts = _ext.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"fp32 losses {losses}")
-    img_s = TRAIN_BATCH * FP32_TIMED_STEPS / sum(times)
-    log(f"fp32 train steps (amp=False, TF32 off): p50 {statistics.median(times):.4f} s  max "
-        f"{max(times):.4f} s  all {[round(t, 4) for t in times]}  loss {losses[0]:.5f} -> "
-        f"{losses[-1]:.5f}")
-    log(f"fp32 train peak memory: {peak:.2f} GiB")
-    log(json.dumps({"metric": "images_per_sec_per_chip_512sq_vaeunet_train_torch_fp32",
-                    "value": round(img_s, 3), "unit": "img/s", "vs_baseline": None}))
-    expected = expected_train_launches(FP32_TIMED_STEPS, amp=False)
-    log(f"fp32 train launches over {FP32_TIMED_STEPS} steps: {counts}  expected {expected}")
+    log(f"fp32 train steps (amp=False, TF32 off): loss {losses[0]:.5f} -> {losses[-1]:.5f}  "
+        f"peak memory {peak:.2f} GiB")
+    expected = expected_train_launches(FP32_COUNTED_STEPS, amp=False)
+    log(f"fp32 train launches over {FP32_COUNTED_STEPS} steps: {counts}  expected {expected}")
     check(counts["conv_bn_stats_fp32"] > 0, "the fp32 conv kernel was not launched")
     check(counts == expected, f"fp32 launch counts {counts} differ from the code's {expected}")
     del state, step, images, masks
@@ -1725,24 +1712,19 @@ def phase_unet_serve() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launch_counts()
-    times = []
     for r in range(N_REQUESTS):
-        t0 = time.perf_counter()
         probs, _ = predict_image(model, scaled)
         full = resize_bilinear(probs[None].permute(0, 3, 1, 2), IMAGE_HW, align_corners=False)
         mask = full[0, 0] > 0.5
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         check(tuple(full.shape) == (1, 1, *IMAGE_HW) and bool(torch.isfinite(full).all())
               and bool(((full >= 0) & (full <= 1)).all()), "UNet request probabilities")
         check(mask.dtype == torch.bool and tuple(mask.shape) == IMAGE_HW, "UNet request mask")
-        log(f"UNet request {r}: {times[-1]:.3f} s  mask share {mask.float().mean().item():.4f}")
+        log(f"UNet request {r}: mask share {mask.float().mean().item():.4f}")
     counts = _ext.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = launches(N_REQUESTS, bn_relu=18, resize=1, resize_row=1)
-    log(f"UNet requests ({list(UNET_SCALED_HW)} in, {list(IMAGE_HW)} out): p50 "
-        f"{statistics.median(times):.3f} s  max {max(times):.3f} s  all "
-        f"{[round(t, 3) for t in times]}  peak memory {peak:.2f} GiB  (fp32, TF32 off)")
+    log(f"UNet requests ({list(UNET_SCALED_HW)} in, {list(IMAGE_HW)} out): "
+        f"peak memory {peak:.2f} GiB  (fp32, TF32 off)")
     log(f"UNet request launches: {counts}  expected {expected}")
     check(counts == expected, f"UNet request launch counts {counts} differ from {expected}")
     for bilinear in (False, True):
@@ -1771,12 +1753,12 @@ def phase_unet_serve() -> dict:
 
 # ----- phases 10 and 11 ----------------------------------------------------
 
-NEW_WARMUP_STEPS, NEW_TIMED_STEPS = 3, 5
+NEW_WARMUP_STEPS, NEW_COUNTED_STEPS = 3, 5
 
 
 def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
     """The 512^2 batch-16 step of `config`: the first step moves every
-    parameter and leaves it finite; 3 warm and 5 timed steps, whose launch
+    parameter and leaves it finite; 3 warm and 5 counted steps, whose launch
     counts must equal `per_step` x 5 and the optimizer's two kernels a step
     over every parameter.  -> (state, counts, images, masks)."""
     state = create_train_state(config, seed=0, device="cuda")
@@ -1797,23 +1779,18 @@ def train_path(config: TrainConfig, label: str, per_step: dict) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _ext.reset_launch_counts()
-    times, losses = [], []
-    for _ in range(NEW_TIMED_STEPS):
-        t0 = time.perf_counter()
+    losses = []
+    for _ in range(NEW_COUNTED_STEPS):
         state, aux = step(state, images, masks, 0.001)
         losses.append(aux["loss"].item())
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
     counts = _ext.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(map(lambda v: v == v and abs(v) < 1e6, losses)), f"{label} losses {losses}")
-    log(f"{label} train steps: p50 {statistics.median(times):.4f} s  max {max(times):.4f} s  "
-        f"all {[round(t, 4) for t in times]}  "
-        f"{TRAIN_BATCH * NEW_TIMED_STEPS / sum(times):.1f} img/s  peak memory {peak:.2f} GiB  "
+    log(f"{label} train steps: peak memory {peak:.2f} GiB  "
         f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
-    expected = add_counts(launches(NEW_TIMED_STEPS, **per_step), optimizer_launches(
-        sum(p.numel() for p in state.model.parameters()), NEW_TIMED_STEPS))
-    log(f"{label} launches over {NEW_TIMED_STEPS} steps: {counts}  expected {expected}")
+    expected = add_counts(launches(NEW_COUNTED_STEPS, **per_step), optimizer_launches(
+        sum(p.numel() for p in state.model.parameters()), NEW_COUNTED_STEPS))
+    log(f"{label} launches over {NEW_COUNTED_STEPS} steps: {counts}  expected {expected}")
     check(counts == expected, f"{label} launch counts {counts} differ from the code's {expected}")
     return state, counts, images, masks
 
@@ -2133,13 +2110,6 @@ def phase_loop(root: Path) -> dict:
           "a batch gathered from ImageDeviceCache differs from the host loader's")
     log(f"image cache batch == host loader batch, bit for bit ({TRAIN_BATCH} patches)")
     augment_checks(images, masks)
-    gen = torch.Generator().manual_seed(3)
-    aug_ms = time_ms(lambda: augment.augment_batch(gen, images, masks), 10)
-    rec = torch.as_tensor(cache.batch_indices(idx), device="cuda")
-    gather_ms = time_ms(lambda: cache.make_gather()(cache.images, cache.masks, rec), 20)
-    log(f"on the card, [16,512,512,3]: gather {gather_ms:.3f} ms  augment_batch "
-        f"{aug_ms:.3f} ms (CUDA events; phase 6's bare step p50 "
-        f"{SUMMARY.get('bare_step_p50', float('nan')):.4f} s)")
 
     # the indexed, augmented step: a finite loss, every parameter moves
     state = create_train_state(config, seed=0, device="cuda")
@@ -2149,7 +2119,7 @@ def phase_loop(root: Path) -> dict:
     state, aux = step(state, cache.images, cache.masks, cache.batch_indices(idx), 0.001)
     check(bool(torch.isfinite(aux["loss"])), f"indexed augmented step: loss {aux['loss']}")
     first_step_moved_everything(state.model, before)
-    del state, step, before, cache, images, masks, rec
+    del state, step, before, cache, images, masks
     torch.cuda.empty_cache()
 
     datasets = (train_ds, val_ds)

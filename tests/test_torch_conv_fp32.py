@@ -177,7 +177,7 @@ def test_tap_major_weights_index_by_index(ci, co, ci_pad, co_pad):
 
 @pytest.mark.parametrize("ci,co", [(5, 7), (64, 64), (224, 64), (800, 512), (100, 130)])
 def test_the_wrapper_pads_to_what_every_build_of_the_kernel_reads(ci, co):
-    """ci_pad is a multiple of every chunk the kernel may be built with and
+    """ci_pad is a multiple of every chunk the kernel allows (4 to 32) and
     co_pad covers whole blocks of 64: the weight copies need no guard."""
     ci_pad, co_pad = cm._round_up(ci, cm.F32_CI_ALIGN), cm._round_up(co, cm.F32_CO_ALIGN)
     for chunk in (4, 8, 16, 32):
@@ -189,7 +189,7 @@ def test_the_wrapper_pads_to_what_every_build_of_the_kernel_reads(ci, co):
 
 def _source_constant(name: str) -> int:
     src = (_ext.CSRC / "conv_bn_stats.cu").read_text()
-    m = re.search(rf"#define {name} (\d+)", src) or re.search(rf"constexpr int {name} = (\d+);", src)
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m, name
     return int(m.group(1))
 
@@ -201,11 +201,11 @@ def test_shared_memory_formula_matches_the_layout():
     assert cm.fp32_smem_bytes(16, 2) == 2 * 4 * (10 * 292 + 9216)
     # two blocks of the built-in configuration fit an SM (1 KB a block is the system's)
     assert 2 * (cm.fp32_smem_bytes() + 1024) <= 233_472
-    assert _source_constant("VAEUNET_F32_BLOCKS_PER_SM") == 2
+    assert _source_constant("kF32BlocksPerSm") == 2
     # the moments' [2][16][64] floats go through the ring
     assert 2 * 16 * BN * 4 <= cm.fp32_smem_bytes(4, 2)
-    assert _source_constant("VAEUNET_F32_CHUNK") == cm.F32_CHUNK
-    assert _source_constant("VAEUNET_F32_STAGES") == cm.F32_STAGES
+    assert _source_constant("kF32Chunk") == cm.F32_CHUNK
+    assert _source_constant("kF32Stages") == cm.F32_STAGES
     assert _source_constant("kF32BN") == cm.F32_BLOCK_CO
     assert (_source_constant("kTH"), _source_constant("kTW")) == (cm.TILE_H, cm.TILE_W)
     assert "conv3x3_stats_kernel" not in (_ext.CSRC / "conv_bn_stats.cu").read_text()

@@ -6,15 +6,17 @@ benchmark's readers of them (``benchmark/harness/program_spans.py``,
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from benchmark.harness import program_spans
 from benchmark.harness.readings import Readings
 from benchmark.harness.registry import Registry
-from benchmark.harness.trace import Tracer
+from benchmark.harness.trace import Tracer, union_intervals
 from vaeunet_tpu_torch.inference import segmentation_distribution, uncertainty_maps
 from vaeunet_tpu_torch.inference.tiled import predict_with_patches
 from vaeunet_tpu_torch.models.vae_unet import build_model
@@ -285,8 +287,11 @@ def test_counter_readers_need_their_counters(monkeypatch):
 
 
 def test_the_programs_breakdown_splits_idle_by_innermost_span():
-    spans = [profiling.Span(i, n, a, b, p, r) for i, n, a, b, p, r in TRAIN_SPANS]
-    busy = profiling.union_intervals([(10, 20), (15, 30), (60, 70)])
-    assert busy == [(10, 30), (60, 70)]
-    held = profiling.idle_by_span(busy, 0, 100, spans)
+    spans = [program_spans.Span(*s) for s in TRAIN_SPANS]
+    assert union_intervals([(10, 20), (15, 30), (60, 70)]) == [(10, 30), (60, 70)]
+    tracer = Tracer()
+    tracer.start_ns, tracer.end_ns = 0, 100
+    tracer.events = [("k", 10, 20), ("k", 15, 30), ("k", 60, 70)]
+    total, held = program_spans.idle_ns(SimpleNamespace(tracer=tracer), spans)
+    assert total == 10 + 30 + 30
     assert held == {0: 5, 1: 5, 2: 10, 3: 20, 4: 10, 5: 10}

@@ -117,18 +117,9 @@ constexpr int kTW = 16;            // output columns per tile
 
 // ----- fp32: SIMT, register-tiled -------------------------------------------
 
-#ifndef VAEUNET_F32_CHUNK
-#define VAEUNET_F32_CHUNK 8
-#endif
-#ifndef VAEUNET_F32_STAGES
-#define VAEUNET_F32_STAGES 3
-#endif
-#ifndef VAEUNET_F32_BLOCKS_PER_SM
-#define VAEUNET_F32_BLOCKS_PER_SM 2
-#endif
-
-constexpr int kF32Chunk = VAEUNET_F32_CHUNK;     // input channels per stage
-constexpr int kF32Stages = VAEUNET_F32_STAGES;   // stages of the cp.async ring
+constexpr int kF32Chunk = 8;                     // input channels per stage
+constexpr int kF32Stages = 3;                    // stages of the cp.async ring
+constexpr int kF32BlocksPerSm = 2;               // __launch_bounds__'s blocks an SM
 constexpr int kF32BN = 64;                       // output channels per block
 constexpr int kF32Threads = 2 * kF32BN;          // 16 pixel groups x 8 channel groups
 constexpr int kPH = kTH + 2;                     // staged patch: 10 rows
@@ -222,7 +213,7 @@ __device__ __forceinline__ void stage_chunk(float* xs, float* ws, const float* _
 // = one tile row and 8 neighbouring columns of it; the 4 pixel groups of a
 // warp are 4 rows of the same columns.
 template <bool VEC>
-__global__ void __launch_bounds__(kF32Threads, VAEUNET_F32_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(kF32Threads, kF32BlocksPerSm)
 conv3x3_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                          float* __restrict__ y, float* __restrict__ part_s,
                          float* __restrict__ part_q, int H, int W, int Ci, int Co, int ci_pad,

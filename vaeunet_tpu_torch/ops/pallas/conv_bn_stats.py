@@ -74,8 +74,9 @@ CI_ALIGN = 8
 # the fp32 kernel of csrc/conv_bn_stats.cu: input channels a stage, stages of
 # its ring, output channels a block (kF32Chunk, kF32Stages, kF32BN)
 F32_CHUNK, F32_STAGES, F32_BLOCK_CO = 8, 3, 64
-# the padding of its weights: any chunk the kernel may be built with divides
-# F32_CI_ALIGN; the step's channel counts are multiples of both already
+# the padding of its weights: every chunk the kernel allows (4 to 32, a
+# static_assert) divides F32_CI_ALIGN; the step's channel counts are
+# multiples of both already
 F32_CI_ALIGN, F32_CO_ALIGN = 32, F32_BLOCK_CO
 # the bf16 route for few input channels (conv3x3_stats_ci8_kernel): its
 # largest Ci, output tile (kSTH x kSTW), the multiple of its K and of Co

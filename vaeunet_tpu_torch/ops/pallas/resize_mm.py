@@ -73,15 +73,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 VEC_BYTES = 16                 # one thread's load or store
 SMEM_LIMIT = 232_448           # shared memory a block can use on sm_90
 SMEM_BUDGET = 100 * 1024       # at least two blocks on an SM
-# The fastest of the tiles and lanes that ``utils/resize_tune.py`` times at
-# the model's 2x upsamples (the optimum is flat: the best five lie within 4 %).
+# The fastest of the tiles and lanes timed on the H100 at the model's 2x
+# upsamples (the optimum is flat: the best five lie within 4 %) and, for the
+# row route, at the logits resize: CHANGES.md, the tiled and the row kernel.
 FORWARD_TILE = (16, 8)         # output rows x columns of a block
 FORWARD_LANES = 16             # 16-byte vectors of a pixel a block takes: 256 bytes
 BACKWARD_TILE = (4, 16)        # input rows x columns of a block
 BACKWARD_CHANNELS = 32         # channels a block takes: its fp32 buffer is as large in bf16
 ROW_TILE = (32, 256)           # the row route: output rows x columns of a block
 # the row route's gradient: gx rows x 16-byte vectors of columns of a block (the
-# fastest of ``resize_tune --row-bwd``'s tiles at the logits' gradient in both types)
+# fastest tile timed at the logits' gradient in both types: CHANGES.md, the row
+# gradient kernel)
 ROW_BWD_TILE = (8, 32)
 MAX_BLOCKS = 2 ** 31 - 1       # gridDim.x
 
