@@ -112,8 +112,9 @@ the card, in phases that each fail the run with a non-zero exit:
    contrastive pretext at full width (resnet34, 512^2, batch 8, bf16), 3
    steps each (every parameter moved and finite, launches held);
    ``time_fn``, ``trace`` and ``track_memory`` once each on the masked
-   step (the traced step's ``bn_torch`` and ``bn_torch_bytes`` held to
-   the BN modules' training calls and their inputs' bytes); ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
+   step (the traced step's ``bn_batch_fwd`` and ``bn_batch_bytes`` held to
+   the BN modules' training calls and their inputs' bytes, ``bn_torch``
+   to 0); ``cli.pretrain`` for one epoch on phase 13's set, and ``cli.train
    --pretrained-encoder`` starting from its encoder bit for bit;
 17. the ensemble protocol's tools, the offline sweep and the benchmark
    entry points, on phase 13's tree (its val split and phase 14's test
@@ -1219,6 +1220,127 @@ def kernel_bn_train(table: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the training BNs off the fused sites timed (bf16, no ReLU: each is summed
+# before its ReLU): a resnet50 bn3 at batch 32, a UNet gate's 32-wide BN and
+# its psi at batch 16
+BN_BATCH_SHAPES = ((32, 256, 128, 128), (16, 32, 512, 512), (16, 1, 512, 512))
+
+
+def kernel_bn_batch(table: dict) -> None:
+    """The training BN kernels over a tensor's own moments (``bn_batch_``):
+    the moments within fp32 summation of x's sums, the forward against the
+    plain version on those moments bit for bit, running statistics
+    included; the backward twice, bit for bit, and within a bf16 ulp (+
+    1e-5 of the largest term) of the plain closed form.  Timed as
+    ``kernel_bn_train``: "w", "a", "d" (a CUDA graph of 10 calls), the
+    plain versions, training ``F.batch_norm`` and its autograd backward as
+    the yardstick (the path these kernels replaced); the bounds, x in and
+    out out forward (the moments pass reads x once more), g and x in and
+    dx out backward."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    cl = torch.channels_last
+    for shape in BN_BATCH_SHAPES:
+        c = shape[1]
+        x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.5).to(torch.bfloat16)
+        x = x.contiguous(memory_format=cl)
+        grad = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        w = torch.rand(c, device="cuda", generator=g) + 0.5
+        b = torch.randn(c, device="cuda", generator=g) * 0.5
+        stats = (torch.randn(c, device="cuda", generator=g), torch.rand(c, device="cuda") + 0.5,
+                 torch.zeros((), dtype=torch.int64, device="cuda"))
+        ours = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
+        ref = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
+        out, moments = bn_train_mod._batch_forward_cuda(x, w, b, False, 1e-5, ours)
+        s, q = moments[:c], moments[c:2 * c]
+        x32 = x.float()
+        sums = (x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
+        err_m = max(((k - z).abs() / z.abs().clamp_min(1e-30)).max().item()
+                    for k, z in zip((s, q), sums))
+        del x32
+        want = bn_train_mod.bn_train_plain(x, s.clone(), q.clone(), w, b, False, 1e-5, ref)
+        torch.cuda.synchronize()
+        name = f"bn_batch {list(shape)} bf16"
+        check(err_m <= 1e-5,
+              f"{name}: the moments differ from x's fp32 sums by {err_m} relative")
+        check(torch.equal(out, want) and all(torch.equal(v, z) for v, z in zip(ours, ref)
+                                             if isinstance(v, torch.Tensor)),
+              f"{name}: the forward or the running statistics differ from the plain version")
+        del want
+
+        def backward():
+            return bn_train_mod._batch_backward_cuda(grad, x, moments, w, b, False, 1e-5)
+
+        first = [t.clone() for t in backward()]
+        again = backward()
+        torch.cuda.synchronize()
+        check(all(torch.equal(v, z) for v, z in zip(first, again)),
+              f"{name}: the backward does not repeat bit for bit")
+        plain = bn_train_mod.bn_train_backward_plain(grad, x, s, q, w, b, False, 1e-5)
+        _, _, inv = bn_train_mod.fold_moments(s, q, x.numel() // c, 1e-5, w)
+        top = max(plain[0].float().abs().max().item(),
+                  inv.abs().max().item() * grad.float().abs().max().item())
+        diff = (first[0].float() - plain[0].float()).abs()
+        err = diff.max().item()
+        check(bool((diff <= 2.0 ** -7 * plain[0].float().abs() + 1e-5 * top).all()),
+              f"{name}: dx beyond a bf16 ulp + 1e-5 of the plain closed form ({err})")
+        err_wb = max(((v - z).abs().max() / z.abs().max()).item()
+                     for v, z in zip(first[1:], plain[1:]))
+        check(err_wb <= 1e-4, f"{name}: dweight or dbias differ by {err_wb} of their max")
+        del plain, diff, again
+        fn_f, args_f, keep_f = bn_train_mod.batch_forward_launch_args(x, out, w, b, False, 1e-5,
+                                                                      None)
+        dx = torch.empty_like(x, memory_format=cl)
+        fn_b, args_b, _, keep_b = bn_train_mod.batch_backward_launch_args(grad, x, dx, moments,
+                                                                          w, b, False, 1e-5)
+        nbytes = x.numel() * x.element_size()
+        it = iters_for(3 * nbytes)
+        t = paired_ms({
+            "fwd_w": lambda: bn_train_mod.bn_batch(x, w, b, False, 1e-5, None),
+            "fwd_a": lambda: _ext.call("bn_train", fn_f, x.device, *args_f),
+            "bwd_w": backward,
+            "bwd_a": lambda: _ext.call("bn_train", fn_b, x.device, *args_b)}, it)
+        d_fwd = device_ms(lambda: _ext.call("bn_train", fn_f, x.device, *args_f), 10, 5)
+        d_bwd = device_ms(lambda: _ext.call("bn_train", fn_b, x.device, *args_b), 10, 5)
+        plain_fwd = time_ms(lambda: bn_train_mod.bn_batch_plain(x, w, b, False), 5)
+        plain_bwd = time_ms(lambda: bn_train_mod.bn_train_backward_plain(grad, x, s, q, w, b,
+                                                                         False), 5)
+        xl, wl, bl = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone(
+        ).requires_grad_()
+        rm, rv = stats[0].clone(), stats[1].clone()
+
+        def library():
+            return F.batch_norm(xl, rm, rv, wl, bl, True, 0.1, 1e-5)
+
+        lib_fwd = time_ms(library, 10)
+        lib_out = library()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (xl, wl, bl), grad,
+                                                      retain_graph=True), 10)
+        bnd_fwd, by = bound_ms(2 * nbytes + 32 * c, 0)
+        bnd_bwd, _ = bound_ms(3 * nbytes, 0)
+        p = bn_train_mod.plan(x.numel() // c, c, 2, True, bn_train_mod._sms(x.device))
+        log(f"{name} forward: moments within {err_m:.3g} of x's fp32 sums, bit for bit on them "
+            f"(running statistics too)  w {t['fwd_w']:.4f} ms  a {t['fwd_a']:.4f} ms  d "
+            f"{d_fwd:.4f} ms ({bnd_fwd / d_fwd:.0%} of the bound)  plain {plain_fwd:.4f} ms  "
+            f"F.batch_norm {lib_fwd:.4f} ms  bound {bnd_fwd:.4f} ms ({by})  moments pass "
+            f"{p.reduce.block} x {p.reduce.grid}, normalisation {p.apply.block} x "
+            f"{p.apply.grid}")
+        log(f"{name} backward: repeats bit for bit, dx max err {err:.3g} vs the plain closed "
+            f"form, dweight/dbias {err_wb:.3g} of their max  w {t['bwd_w']:.4f} ms  a "
+            f"{t['bwd_a']:.4f} ms  d {d_bwd:.4f} ms ({bnd_bwd / d_bwd:.0%} of the bound)  plain "
+            f"{plain_bwd:.4f} ms  autograd of F.batch_norm {lib_bwd:.4f} ms  bound "
+            f"{bnd_bwd:.4f} ms")
+        if shape == BN_BATCH_SHAPES[0]:
+            for key, ms, wrapper, dev, pl, lib, bnd in (
+                    ("bn_batch_fwd", t["fwd_a"], t["fwd_w"], d_fwd, plain_fwd, lib_fwd, bnd_fwd),
+                    ("bn_batch_bwd", t["bwd_a"], t["bwd_w"], d_bwd, plain_bwd, lib_bwd, bnd_bwd)):
+                _record(table, key, err=err if key == "bn_batch_bwd" else 0.0, ms=ms,
+                        wrapper_ms=wrapper, device_ms=dev, plain_ms=pl, library_ms=lib,
+                        bound_ms=bnd, bound_by="bytes", shape=f"{list(shape)} bf16")
+        del x, grad, out, moments, dx, first, keep_f, keep_b, xl, lib_out
+        torch.cuda.empty_cache()
+
+
 # the training configurations whose parameter sets phase 3 steps: (label,
 # train_config's fields)
 CLIP_ADAMW_SETS = (("resnet34 VAE-UNet", {}), ("resnet50 VAE-UNet", {"backbone": "resnet50"}),
@@ -1364,6 +1486,7 @@ def phase_kernels() -> dict:
     kernel_resize_bwd(table)
     kernel_resize_bwd_c1(table)
     kernel_bn_train(table)
+    kernel_bn_batch(table)
     kernel_clip_adamw(table)
     return table
 
@@ -1510,8 +1633,8 @@ def optimizer_launches(elems: int, steps: int = 1) -> dict:
 # the wrappers' counters, one `_ext.call` each ("resize_row",
 # "resize_bwd_row" and "conv_bn_stats_fp32" count a share of their wrapper's)
 CALL_COUNTERS = ("normal", "reparam", "bn_relu", "resize", "resize_bwd", "conv_bn_stats",
-                 "conv_bn_stats_ci8", "bn_train_fwd", "bn_train_bwd", "clip_adamw_norm",
-                 "clip_adamw_update")
+                 "conv_bn_stats_ci8", "bn_train_fwd", "bn_train_bwd", "bn_batch_fwd",
+                 "bn_batch_bwd", "clip_adamw_norm", "clip_adamw_update")
 
 
 def ext_calls(counts: dict) -> int:
@@ -1525,14 +1648,18 @@ def expected_train_launches(steps: int, amp: bool = True) -> dict:
     8 decoder conv + BN pairs take the conv kernel, 4 decoder upsamples and
     the final one to 512^2 the resize kernel, whose backward runs as often,
     and the latent draw one noise kernel; each conv + BN site's BN and
-    ReLU take the training BN kernels once forward and once backward; eval
-    BN+ReLU and the fused draw are not on this path.  The logits' resize
+    ReLU take the training BN kernels once forward and once backward, and
+    the 24 BNs off those sites (the stem, the 3 strided convs', the 3
+    downsamples', z_initial, the 4 z_proj and the gates' 12) the
+    ``bn_batch`` kernels once each way; eval BN+ReLU and the fused draw are
+    not on this path.  The logits' resize
     and its gradient take the row kernels, and without `amp` every conv
     launch the fp32 kernel.  The optimizer step: its two kernels over every
     parameter."""
     return add_counts(
         launches(steps, conv_bn_stats=29 + 8, conv_bn_stats_fp32=0 if amp else 29 + 8,
-                 bn_train_fwd=29 + 8, bn_train_bwd=29 + 8, resize=5, resize_row=1,
+                 bn_train_fwd=29 + 8, bn_train_bwd=29 + 8, bn_batch_fwd=24, bn_batch_bwd=24,
+                 resize=5, resize_row=1,
                  resize_bwd=5, resize_bwd_row=1, normal=1),
         optimizer_launches(param_elems(), steps))
 
@@ -1588,7 +1715,8 @@ def phase_train() -> dict:
     log(f"train steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}  peak memory {peak:.2f} GiB")
     expected = expected_train_launches(COUNTED_STEPS)
     log(f"train launches over {COUNTED_STEPS} steps: {counts}  expected {expected}")
-    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize", "resize_row",
+    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "bn_batch_fwd", "bn_batch_bwd",
+              "resize", "resize_row",
               "resize_bwd", "resize_bwd_row", "normal"):
         check(counts[k] > 0, f"kernel {k} was not launched on the training path")
     check(counts == expected, f"training launch counts {counts} differ from the code's {expected}")
@@ -1808,7 +1936,8 @@ def phase_unet_train() -> list:
         up = 4 if bilinear else 0
         state, counts, images, masks = train_path(
             config, label, dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18,
-                                bn_train_bwd=18, resize=up, resize_bwd=up))
+                                bn_train_bwd=18, bn_batch_fwd=12, bn_batch_bwd=12, resize=up,
+                                resize_bwd=up))
         out.append(counts)
         _ext.reset_launch_counts()
         metrics, logits = make_eval_step(config, state.model)(images, masks)
@@ -1835,8 +1964,9 @@ def phase_r50_train() -> dict:
     config = train_config(backbone="resnet50", deep_supervision=True)
     state, counts, _, _ = train_path(
         config, "resnet50 VAE-UNet + deep supervision",
-        dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, resize=5 + 3, resize_row=1 + 3,
-             resize_bwd=5, resize_bwd_row=1, normal=1))
+        dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, bn_batch_fwd=57,
+             bn_batch_bwd=57, resize=5 + 3, resize_row=1 + 3, resize_bwd=5, resize_bwd_row=1,
+             normal=1))
     del state
     torch.cuda.empty_cache()
     phase_train_parity("resnet50 VAE-UNet + deep supervision", backbone="resnet50",
@@ -1932,8 +2062,9 @@ def phase_remat() -> dict:
 
 FUNDUS_SPLITS = (("train", 4), ("val", 2))
 LOOP_SCALE, LOOP_EPOCHS = 0.5, 2
-TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, bn_train_fwd=37, bn_train_bwd=37, resize=5,
-                           resize_row=1, resize_bwd=5, resize_bwd_row=1, normal=2)
+TRAIN_STEP_LAUNCHES = dict(conv_bn_stats=37, bn_train_fwd=37, bn_train_bwd=37, bn_batch_fwd=24,
+                           bn_batch_bwd=24, resize=5, resize_row=1, resize_bwd=5,
+                           resize_bwd_row=1, normal=2)
 EVAL_STEP_LAUNCHES = dict(bn_relu=17 + 13, resize=5, resize_row=1, normal=1)
 
 
@@ -2753,9 +2884,10 @@ def phase_parallel() -> dict:
     held_to_harness("(b) DP step vs the one-rank step", r0["dp_state"], host_state(state.model),
                     lr)
     per_rank = expected_train_launches(1, amp=False)
-    per_rank.update(bn_train_fwd=0, bn_train_bwd=0)     # its BNs sum the moments over 2 ranks
+    # its BNs sum the moments over 2 ranks
+    per_rank.update(bn_train_fwd=0, bn_train_bwd=0, bn_batch_fwd=0, bn_batch_bwd=0)
     fed = launches(1, conv_bn_stats=37, conv_bn_stats_fp32=37, bn_train_fwd=37, bn_train_bwd=37,
-                   resize=5, resize_row=1, resize_bwd=5,
+                   bn_batch_fwd=24, bn_batch_bwd=24, resize=5, resize_row=1, resize_bwd=5,
                    resize_bwd_row=1)   # the steps on fed noise draw none
     fed_step = add_counts(fed, optimizer_launches(param_elems(), 1))
     for r in ranks:
@@ -2843,7 +2975,7 @@ def phase_parallel() -> dict:
     grads_held("(b) UNet TP step vs its hand split", r0["unet_tp_grads"], refs[True][1],
                SPLIT_GRAD_LIMIT, head="outc.conv")
     unet_fed = launches(1, conv_bn_stats=18, conv_bn_stats_fp32=18, bn_train_fwd=18,
-                        bn_train_bwd=18)
+                        bn_train_bwd=18, bn_batch_fwd=12, bn_batch_bwd=12)
     for r in ranks:
         check(r["unet_tp_counts"] == unet_fed, f"rank {r['rank']}: UNet TP step launches "
               f"{r['unet_tp_counts']} differ from the code's {unet_fed}")
@@ -2877,13 +3009,15 @@ def phase_parallel() -> dict:
 # ----- phase 16 ------------------------------------------------------------
 
 PRETRAIN_BATCH, PRETRAIN_STEPS = 8, 3
-# per step at 512^2: the encoder's 29 stride-1 conv + BN pairs; the masked
-# head's 5 upsamples and its resize to the input, forward and backward; the
-# contrastive views' two noise draws
-PRETEXT_LAUNCHES = {"masked": dict(conv_bn_stats=29, bn_train_fwd=29, bn_train_bwd=29, resize=6,
-                               resize_bwd=6),
+# per step at 512^2: the encoder's 29 stride-1 conv + BN pairs; its 7
+# other BNs (the stem, the strided convs', the downsamples') and the masked
+# head's 5 on the bn_batch kernels; the masked head's 5 upsamples and its
+# resize to the input, forward and backward; the contrastive views' two
+# noise draws
+PRETEXT_LAUNCHES = {"masked": dict(conv_bn_stats=29, bn_train_fwd=29, bn_train_bwd=29,
+                                   bn_batch_fwd=12, bn_batch_bwd=12, resize=6, resize_bwd=6),
                     "contrastive": dict(conv_bn_stats=29, bn_train_fwd=29, bn_train_bwd=29,
-                                        normal=2)}
+                                        bn_batch_fwd=7, bn_batch_bwd=7, normal=2)}
 
 
 def phase_pretrain(root: Path) -> dict:
@@ -2951,13 +3085,13 @@ def phase_pretrain(root: Path) -> dict:
                     h.remove()
             size = Path(trace_path).stat().st_size
             # the one traced step counts its calls and their host time, and
-            # the training BNs it ran on torch's ops with their inputs' bytes
+            # the bytes of the training BNs it ran on the bn_batch kernels
+            # (none on torch's ops)
             one = add_counts(launches(**PRETEXT_LAUNCHES[pretext]),
                              optimizer_launches(elems[pretext]))
             expected = launches(6, **one)
             expected["ext_calls"] = ext_calls(one)
-            expected["bn_torch"] = len(traced)
-            expected["bn_torch_bytes"] = sum(traced)
+            expected["bn_batch_bytes"] = sum(traced)
             got = {k: v for k, v in counts.items() if k != "ext_call_ns"}
             expected.pop("ext_call_ns")
             recorded = [s.name for s in profiling.spans()]
@@ -2965,10 +3099,11 @@ def phase_pretrain(root: Path) -> dict:
                 f"synchronize); track_memory ran one (loss {loss:.5f}, "
                 f"{profiling.device_memory_mb():.0f} MB allocated); trace {trace_path}, {size} "
                 f"bytes; launches of the 6 steps {counts}  expected {expected} (ext_call_ns "
-                f"aside; bn_torch from the BN modules' calls in the traced step); spans of the "
-                f"traced step {recorded}")
+                f"aside; bn_batch_bytes from the BN modules' calls in the traced step); spans of "
+                f"the traced step {recorded}")
             check(size > 0 and mean_s > 0, "the profiling helpers wrote or timed nothing")
-            check(got == expected and counts["ext_call_ns"] > 0 and counts["bn_torch"] > 0,
+            check(got == expected and counts["ext_call_ns"] > 0 and len(traced) == 12
+                  and counts["bn_batch_bytes"] > 0,
                   f"profiled steps' launches {counts} differ from {expected}")
             total = {k: total[k] + counts[k] for k in total}
         del model, state, step, before
@@ -3199,8 +3334,8 @@ def phase_ensemble_tools(root: Path) -> dict:
     log(f"sweep: {SWEEP_TRIALS} trials in {sweep_s:.1f} s, launches {counts}  [{smi}]")
     check(len(records) == len(results) == SWEEP_TRIALS
           and all(r["status"] == "ok" for r in records), f"sweep records {records}")
-    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "resize_bwd", "normal", "bn_relu",
-              "clip_adamw_norm", "clip_adamw_update"):
+    for k in ("conv_bn_stats", "bn_train_fwd", "bn_train_bwd", "bn_batch_fwd", "bn_batch_bwd",
+              "resize_bwd", "normal", "bn_relu", "clip_adamw_norm", "clip_adamw_update"):
         check(counts[k] > 0, f"the sweep's training launched no {k}")
 
     # 6. the two benchmark entry points at their defaults
@@ -3249,6 +3384,8 @@ KERNELS = (
     # no Pallas kernel: the JAX package leaves the training BN to XLA
     ("bn_train_fwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
     ("bn_train_bwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
+    ("bn_batch_fwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
+    ("bn_batch_bwd", "vaeunet_tpu_torch/csrc/bn_train.cu", "none"),
     # no Pallas kernel: the JAX package leaves optax's clip and adamw to XLA
     ("clip_adamw", "vaeunet_tpu_torch/csrc/clip_adamw.cu", "none"),
 )

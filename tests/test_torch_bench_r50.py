@@ -287,3 +287,37 @@ def test_bn_torch_readers():
     assert reg.read(per_step, r) is None and reg.read(roofline, r) is None
     for m in (per_step, roofline):
         assert m["workloads"] == TRAIN_CELLS and m["moves"] == "train_img_per_s"
+
+
+def test_bn_batch_roofline_reads_the_bytes_over_the_bn_batch_kernels():
+    """5 passes of the BNs' counted input bytes at 3.35 TB/s over the
+    device time of the ``bn_batch_`` kernels alone (not torch's batch-norm
+    kernels, not ``bn_train_`` or ``bn_relu_``); nothing without a
+    ``bn_batch_fwd`` count (the parent), without those kernels' time or
+    outside a training cell; its entry moves the training rate in the
+    three training cells."""
+    reg = Registry(SPEC)
+    entry = next(m for m in SPEC["per_layer"] if m["name"] == "bn_batch_roofline")
+    seconds = {"void (anonymous namespace)::bn_batch_moments_kernel<__nv_bfloat16, 8>": 0.001,
+               "void (anonymous namespace)::bn_batch_fwd_kernel<__nv_bfloat16, 8, true>": 0.002,
+               "void (anonymous namespace)::bn_batch_bwd_reduce_kernel<...>": 0.002,
+               "void (anonymous namespace)::bn_batch_bwd_apply_kernel<...>": 0.003,
+               "void (anonymous namespace)::bn_train_fwd_kernel<__nv_bfloat16, 8, true>": 1.0,
+               "void at::native::batch_norm_collect_statistics_channels_last_kernel<...>": 1.0,
+               "void (anonymous namespace)::bn_relu_kernel<float, 4>": 1.0}
+    r = Readings(kind="train", precision="bf16", tracer=_Tracer(seconds), traced_items=10,
+                 counters={"bn_batch_fwd": 570, "bn_batch_bwd": 570,
+                           "bn_batch_bytes": 4_000_000_000, "bn_torch": 0})
+    assert reg.read(entry, r) == pytest.approx(100 * 5 * 4e9 / 3.35e12 / 0.008)
+    for counters in ({}, {"bn_torch": 570, "bn_torch_bytes": 4_000_000_000},
+                     {"bn_batch_fwd": 0, "bn_batch_bytes": 0}):
+        r.counters = counters
+        assert reg.read(entry, r) is None
+    r.counters = {"bn_batch_fwd": 570, "bn_batch_bytes": 4_000_000_000}
+    r.tracer = _Tracer({k: v for k, v in seconds.items() if "bn_batch_" not in k})
+    assert reg.read(entry, r) is None
+    r.tracer = _Tracer(seconds)
+    r.kind = "uq"
+    assert reg.read(entry, r) is None
+    assert entry["workloads"] == TRAIN_CELLS and entry["moves"] == "train_img_per_s"
+    assert entry["layer"] == "kernels" and entry["source"] == "device_trace"

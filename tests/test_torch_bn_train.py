@@ -408,7 +408,7 @@ def test_launch_arguments_fit_the_c_entries(monkeypatch, dtype, c, offset):
     monkeypatch.setattr(bn_train, "tickets",
                         lambda device, chunks: torch.zeros(64, dtype=torch.int32))
     sig = _ext.SIGNATURES["bn_train"]
-    params = dict(re.findall(r"^int (vaeunet_bn_train_\w+)\(([^)]*)\)", SOURCE, re.M))
+    params = dict(re.findall(r"^int (vaeunet_bn_(?:train|batch)_\w+)\(([^)]*)\)", SOURCE, re.M))
     assert set(params) == set(sig)
     for name, listed in params.items():
         assert len(listed.split(",")) == len(sig[name]), name
@@ -449,18 +449,23 @@ def test_launch_arguments_fit_the_c_entries(monkeypatch, dtype, c, offset):
 def test_source_constants_and_kernel_names():
     """The source's block size and rows in flight are bn_relu's (their plan
     is shared); the widest vector fits its shared memory; every kernel's
-    name starts ``bn_train_`` and holds none of the names the conv kernel's
-    roofline or the trace's families read."""
+    name starts ``bn_train_`` or ``bn_batch_``, a ``bn_batch_`` name holds
+    no ``bn_train_`` (each family's roofline times its own kernels), and
+    none holds the names the conv kernel's roofline or the trace's families
+    read."""
     assert int(re.search(r"constexpr int kThreads = (\d+);", SOURCE)[1]) == bn_relu.THREADS
     assert (int(re.search(r"constexpr int kRowsInFlight = (\d+);", SOURCE)[1])
             == bn_relu.ROWS_IN_FLIGHT)
     assert int(re.search(r"constexpr int kMaxVec = (\d+);", SOURCE)[1]) == bn_relu.VEC_BYTES // 2
     names = re.findall(r"__global__ void __launch_bounds__\(kThreads\)\n(\w+)\(", SOURCE)
-    assert sorted(names) == ["bn_train_bwd_apply_kernel", "bn_train_bwd_reduce_kernel",
+    assert sorted(names) == ["bn_batch_bwd_apply_kernel", "bn_batch_bwd_reduce_kernel",
+                             "bn_batch_fwd_kernel", "bn_batch_moments_kernel",
+                             "bn_train_bwd_apply_kernel", "bn_train_bwd_reduce_kernel",
                              "bn_train_fwd_kernel"]
     for name in names:
+        assert "bn_train_" not in name if name.startswith("bn_batch_") else "bn_batch_" not in name
         for taken in ("bn_relu_", "reduce_partials_kernel", "conv3x3_stats", "conv", "copy",
-                      "fill", "cat_", "gemm", "batch_norm", "adam"):
+                      "fill", "cat_", "gemm", "batch_norm", "adam", "bn_fw_tr_", "bn_bw_"):
             assert taken not in name, (name, taken)
 
 

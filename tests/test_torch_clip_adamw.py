@@ -473,8 +473,8 @@ def test_adamw_roofline_reads_32_bytes_an_element_over_the_kernels_time():
     r.tracer, r.kind = _Tracer(seconds), "uq"
     assert reader.read(r) is None
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    entry = spec["per_layer"][-1]
-    assert entry["name"] == "adamw_roofline" and entry["layer"] == "kernels"
+    entry = next(m for m in spec["per_layer"] if m["name"] == "adamw_roofline")
+    assert entry["layer"] == "kernels"
     assert entry["moves"] == "train_img_per_s" and entry["unit"] == "%"
     assert set(entry["workloads"]) == {w["name"] for w in spec["workloads"]
                                        if "-train-" in w["name"]}

@@ -4,7 +4,10 @@ forward equals the plain version on the card bit for bit, running
 statistics included, and the backward is within its tolerance of the plain
 closed form and bit-identical across runs; the routes, a call's device
 kernels, the sites' counts in a step, and the conv + BN site against the
-torch ops it replaced.
+torch ops it replaced.  The same for the ``bn_batch_`` family (the BNs off
+the fused sites): its moments against fp32 sums, its forward against the
+plain version on its own moments bit for bit, its backward against the
+closed form and against autograd of torch's training BN.
 
 Marked ``cuda``; each test asks the ``cuda`` fixture for the card and skips
 without one.  This file imports neither jax nor the JAX package:
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from vaeunet_tpu_torch import use_fp32_numerics
-from vaeunet_tpu_torch.ops import _ext
+from vaeunet_tpu_torch.ops import _ext, layers, remat
 from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, conv3x3_bn
 from vaeunet_tpu_torch.ops.pallas import bn_relu, bn_train, conv_bn_stats
 from vaeunet_tpu_torch.training import TrainConfig, create_train_state, make_train_step
@@ -191,7 +194,10 @@ def test_one_call_forward_one_backward_no_torch_compute(cuda, monkeypatch):
     assert set(fwd_ops.names) <= allocations and set(bwd_ops.names) <= allocations, (
         fwd_ops.names, bwd_ops.names)
     source = (_ext.CSRC / "bn_train.cu").read_text()
-    assert source.count("<<<") == 3        # the forward's launch, the backward's two
+    # the forward's launch and the backward's two, of each family (the
+    # bn_batch_ forward adds its moments pass)
+    assert source.count("bn_train_fwd_kernel<T, V, kRelu><<<") == 1
+    assert source.count("<<<") == 3 + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -249,3 +255,169 @@ def test_a_step_runs_one_forward_and_one_backward_a_site(cuda, kind, sites):
     assert counts["conv_bn_stats"] + counts["conv_bn_stats_ci8"] == sites, counts
     for name, p in state.model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
+# ----- bn_batch: training BN over the tensor's own moments -------------------
+
+def batch_forward(x, bn, relu, running):
+    """The forward's C call alone: (out, s, q)."""
+    out, moments = bn_train._batch_forward_cuda(x, bn.weight, bn.bias, relu, bn.eps, running)
+    c = x.shape[1]
+    return out, moments[:c], moments[c:2 * c], moments
+
+
+def check_batch(x, grad, bn, relu):
+    """Moments within fp32 summation of x's own sums; the forward bit for
+    bit the plain version on those moments (running statistics and the
+    counter included); the backward bit for bit across runs and within
+    ``check_backward``'s tolerance of the closed form; against autograd of
+    torch's training BN (+ ReLU), relative L2 1e-4 in fp32 and 2e-2 in
+    bf16 (a few elements near 0 may fall on the other side of the ReLU)."""
+    c = x.shape[1]
+    ours = bn._running()
+    ref = bn_train.Running(ours.mean.clone(), ours.var.clone(), ours.count.clone(),
+                           ours.momentum)
+    before = _ext.launch_counts()["bn_batch_fwd"]
+    out, s, q, moments = batch_forward(x, bn, relu, ours)
+    torch.cuda.synchronize()
+    assert _ext.launch_counts()["bn_batch_fwd"] == before + 1
+    x32 = x.float()
+    for got, want, mag in ((s, x32.sum((0, 2, 3)), x32.abs().sum((0, 2, 3))),
+                           (q, (x32 * x32).sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))):
+        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all()), (got - want).abs().max()
+    want = bn_train.bn_train_plain(x, s.clone(), q.clone(), bn.weight, bn.bias, relu, bn.eps,
+                                   ref)
+    assert out.dtype == x.dtype and out.is_contiguous(memory_format=CL)
+    assert torch.equal(out, want)
+    assert torch.equal(ours.mean, ref.mean) and torch.equal(ours.var, ref.var)
+    assert int(ours.count) == int(ref.count) == 1
+
+    def run():
+        return bn_train._batch_backward_cuda(grad, x, moments, bn.weight, bn.bias, relu, bn.eps)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    dx, dw, db = first
+    with torch.no_grad():
+        plain = bn_train.bn_train_backward_plain(grad, x, s, q, bn.weight, bn.bias, relu, bn.eps)
+    ulp = torch.finfo(x.dtype).eps
+    _, _, inv = bn_train.fold_moments(s, q, x.numel() // c, bn.eps, bn.weight)
+    top = max(plain[0].float().abs().max().item(),
+              inv.abs().max().item() * grad.float().abs().max().item())
+    torch.testing.assert_close(dx.float(), plain[0].float(), rtol=ulp, atol=1e-5 * top)
+    for got, want in ((dw, plain[1]), (db, plain[2])):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+    x2 = x.clone().requires_grad_()
+    w2, b2 = bn.weight.detach().clone().requires_grad_(), bn.bias.detach().clone().requires_grad_()
+    y2 = F.batch_norm(x2, None, None, w2, b2, True, 0.1, bn.eps)
+    y2 = F.relu(y2) if relu else y2
+    theirs = torch.autograd.grad(y2, (x2, w2, b2), grad)
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    for k, (a, b) in enumerate(zip((dx, dw, db), theirs)):
+        rel = ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+        assert rel <= tol, (k, rel)
+
+
+def batch_inputs(shape, dtype, device, seed: int = 0, offset: int = 0):
+    x, _, _, grad, bn = inputs(shape, dtype, device, seed=seed, offset=offset)
+    return x, grad, bn
+
+
+# C = 1 (the gate's psi), 3 (ragged: the scalar route), 32 (the latent and
+# the UNet's gates), 64, 256 and 2048 (the resnet50 encoder), at ragged rows
+BATCH_SMALL = [((4, c, 13, 11), dtype, 0) for c in (1, 3, 32, 64, 256, 2048)
+               for dtype in (torch.float32, torch.bfloat16)]
+BATCH_SMALL += [((4, 64, 13, 11), torch.bfloat16, 1), ((3, 32, 7, 5), torch.float32, 1)]
+
+
+@pytest.mark.parametrize("shape,dtype,offset", BATCH_SMALL)
+@pytest.mark.parametrize("relu", [True, False])
+def test_bn_batch_moments_forward_backward(cuda, shape, dtype, offset, relu):
+    x, grad, bn = batch_inputs(shape, dtype, cuda, seed=shape[1] + offset, offset=offset)
+    aligned = x.data_ptr() % 16 == 0
+    route = bn_relu.plan(x.numel() // shape[1], shape[1], x.element_size(), aligned).route
+    assert route == ("vector" if aligned and shape[1] % (16 // x.element_size()) == 0
+                     else "scalar")
+    if offset:
+        # an offset view that is still channels_last: the wrapper launches it as it is
+        assert x.is_contiguous(memory_format=CL) and route == "scalar"
+    check_batch(x, grad, bn, relu)
+
+
+# the path's shapes: a resnet50 bn3 at batch 32, a UNet gate's 32-wide BN
+# and its psi at batch 16
+BATCH_SITES = [((32, 256, 128, 128), True), ((16, 32, 512, 512), False),
+               ((16, 1, 512, 512), False)]
+
+
+@pytest.mark.parametrize("shape,relu", BATCH_SITES)
+def test_bn_batch_at_the_site_shapes(cuda, shape, relu):
+    x, grad, bn = batch_inputs(shape, torch.bfloat16, cuda, seed=7)
+    check_batch(x, grad, bn, relu)
+
+
+def test_bn_batch_module_route_and_frozen_statistics(cuda, monkeypatch):
+    """A training BatchNorm on the card is one bn_batch node, the ReLU
+    inside; under a remat recompute its statistics stay; eval mode and a
+    set ``group`` keep torch's ops."""
+    x, _, bn = batch_inputs((2, 64, 8, 8), torch.bfloat16, cuda)
+    x.requires_grad_()
+    out = bn(x, relu=True)
+    assert type(out.grad_fn).__name__ == "_BnBatchBackward" and bool((out >= 0).all())
+    assert int(bn.num_batches_tracked) == 1
+    before = [t.clone() for t in (bn.running_mean, bn.running_var, bn.num_batches_tracked)]
+    calls = _ext.launch_counts()["bn_batch_fwd"]
+    with remat._scope(None, recompute=True):
+        bn(x)
+    torch.cuda.synchronize()
+    assert _ext.launch_counts()["bn_batch_fwd"] == calls + 1
+    for a, b in zip(before, (bn.running_mean, bn.running_var, bn.num_batches_tracked)):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        bn_train.bn_batch(x, bn.weight, bn.bias, True, bn.eps, None)
+    torch.cuda.synchronize()
+    for a, b in zip(before, (bn.running_mean, bn.running_var, bn.num_batches_tracked)):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(layers, "all_reduce_sum", lambda t, group: t)
+    monkeypatch.setattr(layers.dist, "get_world_size", lambda group: 1)
+    bn.group = object()
+    assert type(bn(x).grad_fn).__name__ != "_BnBatchBackward"
+    bn.group = None
+    bn.eval()
+    assert type(bn(x).grad_fn).__name__ != "_BnBatchBackward"
+
+
+def test_bn_batch_one_call_each_way_no_torch_compute(cuda, monkeypatch):
+    """A forward is one C call (two launches), a backward one (two);
+    around them no torch op but allocations and views runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    calls = []
+    real = _ext.call
+    monkeypatch.setattr(_ext, "call", lambda lib, fn, *a: (calls.append(fn), real(lib, fn, *a)))
+    x, grad, bn = batch_inputs((4, 64, 32, 32), torch.bfloat16, cuda)
+    out, moments = bn_train._batch_forward_cuda(x, bn.weight, bn.bias, True, bn.eps,
+                                                bn._running())
+    bn_train._batch_backward_cuda(grad, x, moments, bn.weight, bn.bias, True, bn.eps)
+    calls.clear()
+    with Ops() as fwd_ops:
+        bn_train.bn_batch(x, bn.weight, bn.bias, True, bn.eps, bn._running())
+    with Ops() as bwd_ops:
+        bn_train._batch_backward_cuda(grad, x, moments, bn.weight, bn.bias, True, bn.eps)
+    torch.cuda.synchronize()
+    assert calls == ["vaeunet_bn_batch_fwd_bf16", "vaeunet_bn_batch_bwd_bf16"]
+    allocations = {"empty", "empty_like", "empty_strided", "select", "zeros"}
+    assert set(fwd_ops.names) <= allocations and set(bwd_ops.names) <= allocations, (
+        fwd_ops.names, bwd_ops.names)

@@ -158,11 +158,13 @@ def test_gradient_through_a_checkpointed_block_with_kernels(cuda, policy, dtype)
 
 @pytest.mark.parametrize("kind,per_step", [
     ("unet", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18, bn_train_bwd=18,
-                  resize=0, resize_bwd=0, normal=0)),
+                  bn_batch_fwd=12, bn_batch_bwd=12, resize=0, resize_bwd=0, normal=0)),
     ("unet_bilinear", dict(conv_bn_stats=17, conv_bn_stats_ci8=1, bn_train_fwd=18,
-                           bn_train_bwd=18, resize=4, resize_bwd=4, normal=0)),
-    ("resnet50_ds", dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, resize=8,
-                         resize_row=4, resize_bwd=5, resize_bwd_row=1, normal=1)),
+                           bn_train_bwd=18, bn_batch_fwd=12, bn_batch_bwd=12, resize=4,
+                           resize_bwd=4, normal=0)),
+    ("resnet50_ds", dict(conv_bn_stats=21, bn_train_fwd=21, bn_train_bwd=21, bn_batch_fwd=57,
+                         bn_batch_bwd=57, resize=8, resize_row=4, resize_bwd=5, resize_bwd_row=1,
+                         normal=1)),
 ])
 def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
     """A bf16 step at 64^2, batch 2: every parameter gets a finite
@@ -195,14 +197,20 @@ def test_steps_launch_the_counted_kernels(cuda, kind, per_step):
         "clip_adamw_elems": sum(p.numel() for p in state.model.parameters())}
 
 
-@pytest.mark.parametrize("kind,bn_torch", [("resnet50", 57), ("resnet50_ds", 57)])
-def test_profiled_step_counts_the_torch_op_bns(cuda, kind, bn_torch):
-    """Under a profiler session, one bf16 resnet50 step at 64^2, batch 2
-    runs 57 training BNs on torch's ops (every BN outside the 21 fused
-    sites; deep supervision's heads carry none), and ``bn_torch_bytes``
-    counts their inputs' bf16 bytes; unprofiled, the counters stay 0."""
+@pytest.mark.parametrize("kind,bn_batch,fused", [("resnet50", 57, 21), ("resnet50_ds", 57, 21),
+                                                 ("resnet34", 24, 37), ("unet", 12, 18)])
+def test_profiled_step_counts_the_torch_op_bns(cuda, kind, bn_batch, fused):
+    """Under a profiler session, one bf16 step at 64^2, batch 2 runs no
+    training BN on torch's ops: every BN outside the fused sites (57 of
+    resnet50, deep supervision's heads carrying none; 24 of resnet34; 12 of
+    the UNet) is one ``bn_batch`` call forward and one backward, the
+    forward pre-hooks see each, and ``bn_batch_bytes`` counts their inputs'
+    bf16 bytes; unprofiled, the byte counters stay 0."""
+    fields = dict(resnet50=dict(backbone="resnet50"),
+                  resnet50_ds=dict(backbone="resnet50", deep_supervision=True),
+                  resnet34=dict(backbone="resnet34"), unet=dict(model_type="basic"))[kind]
     config = TrainConfig(batch_size=2, gradient_accumulation_steps=1, patch_size=64, amp=True,
-                         backbone="resnet50", deep_supervision=kind == "resnet50_ds")
+                         **fields)
     state = create_train_state(config, seed=0, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(2)
     images = torch.rand((2, 64, 64, 3), device=cuda, generator=g)
@@ -214,7 +222,9 @@ def test_profiled_step_counts_the_torch_op_bns(cuda, kind, bn_torch):
     try:
         _ext.reset_launch_counts()
         step.compute_gradients(state, images, masks, 0.001)
-        assert _ext.launch_counts()["bn_torch"] == 0
+        assert _ext.launch_counts()["bn_torch"] == 0 == _ext.launch_counts()["bn_batch_bytes"]
+        assert _ext.launch_counts()["bn_batch_fwd"] == bn_batch
+        _ext.reset_launch_counts()
         seen.clear()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
             step.compute_gradients(state, images, masks, 0.001)
@@ -223,10 +233,11 @@ def test_profiled_step_counts_the_torch_op_bns(cuda, kind, bn_torch):
         for h in hooks:
             h.remove()
     counts = _ext.launch_counts()
-    assert counts["bn_torch"] == len(seen) == bn_torch
-    assert counts["bn_torch_bytes"] == sum(t.numel() * 2 for t in seen)
+    assert counts["bn_torch"] == 0 == counts["bn_torch_bytes"]
+    assert counts["bn_batch_fwd"] == counts["bn_batch_bwd"] == len(seen) == bn_batch
+    assert counts["bn_batch_bytes"] == sum(t.numel() * 2 for t in seen)
     assert all(t.dtype == torch.bfloat16 for t in seen)
-    assert counts["bn_train_fwd"] == counts["bn_train_bwd"] == 2 * 21
+    assert counts["bn_train_fwd"] == counts["bn_train_bwd"] == fused
 
 
 def test_unet_eval_forward_launches_bn_relu(cuda):

@@ -42,6 +42,19 @@
 // self + alpha * other, which nvcc contracts into one fma.  The backward
 // recomputes out with the same steps, so its mask is the forward's.
 //
+// The bn_batch_ family does the same for a tensor that comes without its
+// moments (every training BN outside the fused 3x3 sites: after a 1x1 or
+// strided conv, the latent projections, the attention gates):
+// bn_batch_moments_kernel reads x once for its fp32 per-channel sum s and
+// sum of squares q, on the backward's sums structure (a partial row a
+// block, the last ticket adding the rows in a fixed order: deterministic,
+// no atomics on values), and the normalisation and the two-pass backward
+// are the kernels above under their own names, so the trace tells the two
+// families apart.  The forward entry launches moments then normalisation,
+// the backward entry sums then dy: one host call each way.  A site moves 8
+// passes (moments 1, forward 2, backward 5) where torch's BN moved ~7 and
+// a ReLU beside it 4 more.
+//
 // Routes and blocks are planned on the host (ops/pallas/bn_train.py::plan,
 // on bn_relu's plan), never as a fallback: the vector route (C a multiple
 // of V, the tensors on 16-byte addresses) and the scalar route (V = 1) for
@@ -125,14 +138,15 @@ struct Channels {
   }
 };
 
+// The forward of one block's rows: out = relu?(normalized), and the running
+// statistics moved by the first row of blocks.
 template <typename T, int V, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-bn_train_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
-                    typename Lanes<T, V>::Raw* __restrict__ out, const float* __restrict__ s,
-                    const float* __restrict__ q, const float* __restrict__ w,
-                    const float* __restrict__ b, float* __restrict__ run_mean,
-                    float* __restrict__ run_var, long long* __restrict__ count, Params p,
-                    int64_t rows, int vecs, bool vec_stats, bool update) {
+__device__ __forceinline__ void normalize_rows(
+    const typename Lanes<T, V>::Raw* __restrict__ y, typename Lanes<T, V>::Raw* __restrict__ out,
+    const float* __restrict__ s, const float* __restrict__ q, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ run_mean, float* __restrict__ run_var,
+    long long* __restrict__ count, const Params& p, int64_t rows, int vecs, bool vec_stats,
+    bool update) {
   using L = Lanes<T, V>;
   const int v = blockIdx.y * blockDim.x + threadIdx.x;     // this thread's channel vector
   if (v >= vecs) return;
@@ -176,6 +190,30 @@ bn_train_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
   }
 }
 
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_train_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
+                    typename Lanes<T, V>::Raw* __restrict__ out, const float* __restrict__ s,
+                    const float* __restrict__ q, const float* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ run_mean,
+                    float* __restrict__ run_var, long long* __restrict__ count, Params p,
+                    int64_t rows, int vecs, bool vec_stats, bool update) {
+  normalize_rows<T, V, kRelu>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
+                              vec_stats, update);
+}
+
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_batch_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
+                    typename Lanes<T, V>::Raw* __restrict__ out, const float* __restrict__ s,
+                    const float* __restrict__ q, const float* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ run_mean,
+                    float* __restrict__ run_var, long long* __restrict__ count, Params p,
+                    int64_t rows, int vecs, bool vec_stats, bool update) {
+  normalize_rows<T, V, kRelu>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
+                              vec_stats, update);
+}
+
 // g' of one element: g where the forward's output is kept by the ReLU
 // (torch's threshold_backward: 0 where out <= 0)
 template <typename T, bool kRelu>
@@ -203,25 +241,81 @@ __device__ __forceinline__ void sum_rows(float (*red)[kThreads * kMaxVec], int t
   }
 }
 
-// Pass 1 of the backward: A and B a channel.  Each block sums its rows into
-// one partial row of [gridDim.x][2][C]; the block that takes the last ticket
-// of its channel chunk sums the partial rows in a fixed order and writes the
-// chunk's k0, k1 (coef [2][C]), dweight and dbias, then resets the ticket.
-template <typename T, int V, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
-                           const typename Lanes<T, V>::Raw* __restrict__ y,
-                           const float* __restrict__ s, const float* __restrict__ q,
-                           const float* __restrict__ w, const float* __restrict__ b, Params p,
-                           int64_t rows, int vecs, bool vec_stats, float* partial,
-                           unsigned int* tickets, float* __restrict__ coef,
-                           float* __restrict__ dw, float* __restrict__ db) {
-  using L = Lanes<T, V>;
+// Two per-channel sums over every row, for the thread's V channels (sa,
+// sb): the block adds its rows of threads in a fixed order into one partial
+// row of [gridDim.x][2][C]; the block that takes the last ticket of its
+// channel chunk adds the partial rows in a fixed order and resets the
+// ticket.  Returns true in that block alone, where the threads of row 0
+// then hold the chunk's totals in sa, sb.
+template <int V>
+__device__ __forceinline__ bool chunk_totals(float (&sa)[V], float (&sb)[V], float* partial,
+                                             unsigned int* tickets, int v, bool live, int c) {
   __shared__ float red[2][kThreads * kMaxVec];
   __shared__ bool last;
   const int bx = blockDim.x, by = blockDim.y, ty = threadIdx.y;
   const int t = ty * bx + threadIdx.x;
-  const int v = blockIdx.y * bx + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    red[0][t * V + j] = sa[j];
+    red[1][t * V + j] = sb[j];
+  }
+  __syncthreads();
+  sum_rows<V>(red, t, ty, bx, by);
+  if (ty == 0 && live) {
+    float* row = partial + static_cast<int64_t>(blockIdx.x) * 2 * c;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      row[v * V + j] = red[0][t * V + j];
+      row[c + v * V + j] = red[1][t * V + j];
+    }
+  }
+  __threadfence();        // the partial row is visible before the ticket is taken
+  __syncthreads();
+  if (t == 0) last = atomicAdd(&tickets[blockIdx.y], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return false;
+
+  // the chunk's last block: its rows of threads take the partial rows in turn
+#pragma unroll
+  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.0f;
+  if (live) {
+    for (int pr = ty; pr < static_cast<int>(gridDim.x); pr += by) {
+      const float* row = partial + static_cast<int64_t>(pr) * 2 * c;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        sa[j] += __ldcg(row + v * V + j);
+        sb[j] += __ldcg(row + c + v * V + j);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    red[0][t * V + j] = sa[j];
+    red[1][t * V + j] = sb[j];
+  }
+  __syncthreads();
+  sum_rows<V>(red, t, ty, bx, by);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    sa[j] = red[0][t * V + j];
+    sb[j] = red[1][t * V + j];
+  }
+  if (t == 0) tickets[blockIdx.y] = 0;
+  return true;
+}
+
+// Pass 1 of the backward: A and B a channel, summed by chunk_totals; the
+// last block of a chunk writes its k0, k1 (coef [2][C]), dweight and dbias.
+template <typename T, int V, bool kRelu>
+__device__ __forceinline__ void backward_sums(
+    const typename Lanes<T, V>::Raw* __restrict__ g, const typename Lanes<T, V>::Raw* __restrict__ y,
+    const float* __restrict__ s, const float* __restrict__ q, const float* __restrict__ w,
+    const float* __restrict__ b, const Params& p, int64_t rows, int vecs, bool vec_stats,
+    float* partial, unsigned int* tickets, float* __restrict__ coef, float* __restrict__ dw,
+    float* __restrict__ db) {
+  using L = Lanes<T, V>;
+  const int by = blockDim.y, ty = threadIdx.y;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
   const bool live = v < vecs;
   const int c = vecs * V;
 
@@ -259,52 +353,12 @@ bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    red[0][t * V + j] = sa[j];
-    red[1][t * V + j] = sb[j];
-  }
-  __syncthreads();
-  sum_rows<V>(red, t, ty, bx, by);
-  if (ty == 0 && live) {
-    float* row = partial + static_cast<int64_t>(blockIdx.x) * 2 * c;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      row[v * V + j] = red[0][t * V + j];
-      row[c + v * V + j] = red[1][t * V + j];
-    }
-  }
-  __threadfence();        // the partial row is visible before the ticket is taken
-  __syncthreads();
-  if (t == 0) last = atomicAdd(&tickets[blockIdx.y], 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-
-  // the chunk's last block: its rows of threads take the partial rows in turn
-#pragma unroll
-  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.0f;
-  if (live) {
-    for (int pr = ty; pr < static_cast<int>(gridDim.x); pr += by) {
-      const float* row = partial + static_cast<int64_t>(pr) * 2 * c;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        sa[j] += __ldcg(row + v * V + j);
-        sb[j] += __ldcg(row + c + v * V + j);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    red[0][t * V + j] = sa[j];
-    red[1][t * V + j] = sb[j];
-  }
-  __syncthreads();
-  sum_rows<V>(red, t, ty, bx, by);
+  if (!chunk_totals<V>(sa, sb, partial, tickets, v, live, c)) return;
   if (ty == 0 && live) {
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int k = v * V + j;
-      const float a = red[0][t * V + j], bsum = red[1][t * V + j];
+      const float a = sa[j], bsum = sb[j];
       const Fold f = fold1(s[k], q[k], p);
       const float inv = __fmul_rn(f.r, w[k]);
       // rsqrt's gradient, -0.5 r^3, then the clamp's: it passes where var_raw >= 0
@@ -316,19 +370,41 @@ bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
       db[k] = a;
     }
   }
-  if (t == 0) tickets[blockIdx.y] = 0;
+}
+
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
+                           const typename Lanes<T, V>::Raw* __restrict__ y,
+                           const float* __restrict__ s, const float* __restrict__ q,
+                           const float* __restrict__ w, const float* __restrict__ b, Params p,
+                           int64_t rows, int vecs, bool vec_stats, float* partial,
+                           unsigned int* tickets, float* __restrict__ coef,
+                           float* __restrict__ dw, float* __restrict__ db) {
+  backward_sums<T, V, kRelu>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
+                             dw, db);
+}
+
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_batch_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
+                           const typename Lanes<T, V>::Raw* __restrict__ y,
+                           const float* __restrict__ s, const float* __restrict__ q,
+                           const float* __restrict__ w, const float* __restrict__ b, Params p,
+                           int64_t rows, int vecs, bool vec_stats, float* partial,
+                           unsigned int* tickets, float* __restrict__ coef,
+                           float* __restrict__ dw, float* __restrict__ db) {
+  backward_sums<T, V, kRelu>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
+                             dw, db);
 }
 
 // Pass 2 of the backward: dy = inv g' + k0 + k1 (y - mean), rounded once.
 template <typename T, int V, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-bn_train_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
-                          const typename Lanes<T, V>::Raw* __restrict__ y,
-                          typename Lanes<T, V>::Raw* __restrict__ dy,
-                          const float* __restrict__ s, const float* __restrict__ q,
-                          const float* __restrict__ w, const float* __restrict__ b,
-                          const float* __restrict__ coef, Params p, int64_t rows, int vecs,
-                          bool vec_stats) {
+__device__ __forceinline__ void backward_apply(
+    const typename Lanes<T, V>::Raw* __restrict__ g, const typename Lanes<T, V>::Raw* __restrict__ y,
+    typename Lanes<T, V>::Raw* __restrict__ dy, const float* __restrict__ s,
+    const float* __restrict__ q, const float* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ coef, const Params& p, int64_t rows, int vecs, bool vec_stats) {
   using L = Lanes<T, V>;
   const int v = blockIdx.y * blockDim.x + threadIdx.x;
   if (v >= vecs) return;
@@ -369,6 +445,78 @@ bn_train_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
   }
 }
 
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_train_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
+                          const typename Lanes<T, V>::Raw* __restrict__ y,
+                          typename Lanes<T, V>::Raw* __restrict__ dy,
+                          const float* __restrict__ s, const float* __restrict__ q,
+                          const float* __restrict__ w, const float* __restrict__ b,
+                          const float* __restrict__ coef, Params p, int64_t rows, int vecs,
+                          bool vec_stats) {
+  backward_apply<T, V, kRelu>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
+}
+
+template <typename T, int V, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+bn_batch_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
+                          const typename Lanes<T, V>::Raw* __restrict__ y,
+                          typename Lanes<T, V>::Raw* __restrict__ dy,
+                          const float* __restrict__ s, const float* __restrict__ q,
+                          const float* __restrict__ w, const float* __restrict__ b,
+                          const float* __restrict__ coef, Params p, int64_t rows, int vecs,
+                          bool vec_stats) {
+  backward_apply<T, V, kRelu>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
+}
+
+// The moments of x: its fp32 sum s and sum of squares q a channel, written
+// to sq [2][C] by the last block of each channel chunk (one read of x).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_batch_moments_kernel(const typename Lanes<T, V>::Raw* __restrict__ x, int64_t rows, int vecs,
+                        float* partial, unsigned int* tickets, float* __restrict__ sq) {
+  using L = Lanes<T, V>;
+  const int by = blockDim.y, ty = threadIdx.y;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = v < vecs;
+  const int c = vecs * V;
+
+  float sa[V], sb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.0f;
+  if (live) {
+    const int64_t step = static_cast<int64_t>(gridDim.x) * by * kRowsInFlight;
+    for (int64_t r0 = static_cast<int64_t>(blockIdx.x) * by * kRowsInFlight + ty; r0 < rows;
+         r0 += step) {
+      typename L::Raw in[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int64_t r = r0 + u * by;
+        if (r < rows) in[u] = x[r * vecs + v];
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        if (r0 + u * by >= rows) break;
+        float f[V];
+        L::unpack(in[u], f);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          sa[j] += f[j];
+          sb[j] = fmaf(f[j], f[j], sb[j]);
+        }
+      }
+    }
+  }
+  if (!chunk_totals<V>(sa, sb, partial, tickets, v, live, c)) return;
+  if (ty == 0 && live) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sq[v * V + j] = sa[j];
+      sq[c + v * V + j] = sb[j];
+    }
+  }
+}
+
 // the checks every launch shares: a plan of `vec` channels a thread, a
 // block of block_x x block_y threads, grid_y chunks that cover C
 bool plan_ok(int64_t rows, int c, int vec, int kvec, int block_x, int block_y, int grid_x,
@@ -378,15 +526,29 @@ bool plan_ok(int64_t rows, int c, int vec, int kvec, int block_x, int block_y, i
          c % vec == 0 && static_cast<int64_t>(block_x) * grid_y >= c / vec;
 }
 
-template <typename T, int V, bool kRelu>
+// The normalisation launch of either family (kBatch: bn_batch_fwd_kernel).
+template <typename T, int V, bool kRelu, bool kBatch>
 void fwd(const T* y, T* out, const float* s, const float* q, const float* w, const float* b,
          float* rm, float* rv, long long* count, const Params& p, int64_t rows, int c,
          dim3 grid, dim3 block, bool update, cudaStream_t st) {
   using Raw = typename Lanes<T, V>::Raw;
   const bool vec_stats = V > 1 && aligned16(s) && aligned16(q) && aligned16(w) && aligned16(b);
-  bn_train_fwd_kernel<T, V, kRelu><<<grid, block, 0, st>>>(
-      reinterpret_cast<const Raw*>(y), reinterpret_cast<Raw*>(out), s, q, w, b, rm, rv, count,
-      p, rows, c / V, vec_stats, update);
+  const Raw* yr = reinterpret_cast<const Raw*>(y);
+  Raw* outr = reinterpret_cast<Raw*>(out);
+  if constexpr (kBatch)
+    bn_batch_fwd_kernel<T, V, kRelu><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
+                                                            p, rows, c / V, vec_stats, update);
+  else
+    bn_train_fwd_kernel<T, V, kRelu><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
+                                                            p, rows, c / V, vec_stats, update);
+}
+
+template <typename T, int V, bool kBatch>
+void fwd_relu(const T* y, T* out, const float* s, const float* q, const float* w, const float* b,
+              float* rm, float* rv, long long* count, const Params& p, int64_t rows, int c,
+              dim3 grid, dim3 block, bool relu, bool update, cudaStream_t st) {
+  if (relu) fwd<T, V, true, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
+  else fwd<T, V, false, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
 }
 
 template <typename T, int kVec>
@@ -400,17 +562,53 @@ int launch_fwd(const T* y, T* out, const float* s, const float* q, const float* 
   const bool relu = flags & 1, update = flags & 2;
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 1) {
-    if (relu) fwd<T, 1, true>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
-    else fwd<T, 1, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
-  } else {
-    if (relu) fwd<T, kVec, true>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
-    else fwd<T, kVec, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
-  }
+  if (vec == 1)
+    fwd_relu<T, 1, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, relu, update, st);
+  else
+    fwd_relu<T, kVec, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, relu, update, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V, bool kRelu>
+// The bn_batch forward: the moments into sq [2][C] (`partial` [reduce_grid_x][2][C]
+// and one zeroed ticket a chunk), then the normalisation from them.
+template <typename T, int V>
+int batch_fwd(const T* x, T* out, float* sq, float* partial, unsigned int* tickets,
+              const float* w, const float* b, float* rm, float* rv, long long* count,
+              const Params& p, int64_t rows, int c, dim3 reduce_grid, dim3 reduce_block,
+              dim3 grid, dim3 block, bool relu, bool update, cudaStream_t st) {
+  using Raw = typename Lanes<T, V>::Raw;
+  bn_batch_moments_kernel<T, V><<<reduce_grid, reduce_block, 0, st>>>(
+      reinterpret_cast<const Raw*>(x), rows, c / V, partial, tickets, sq);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  fwd_relu<T, V, true>(x, out, sq, sq + c, w, b, rm, rv, count, p, rows, c, grid, block, relu,
+                       update, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kVec>
+int launch_batch_fwd(const T* x, T* out, float* sq, float* partial, unsigned int* tickets,
+                     const float* w, const float* b, float* rm, float* rv, long long* count,
+                     Params p, int64_t rows, int c, int vec, int reduce_x, int reduce_y,
+                     int reduce_grid_x, int reduce_grid_y, int block_x, int block_y, int grid_x,
+                     int grid_y, int flags, void* stream) {
+  if (!plan_ok(rows, c, vec, kVec, block_x, block_y, grid_x, grid_y) ||
+      !plan_ok(rows, c, vec, kVec, reduce_x, reduce_y, reduce_grid_x, reduce_grid_y) ||
+      (vec != 1 && !(aligned16(x) && aligned16(out))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool relu = flags & 1, update = flags & 2;
+  const dim3 rgrid(reduce_grid_x, reduce_grid_y), rblock(reduce_x, reduce_y);
+  const dim3 grid(grid_x, grid_y), block(block_x, block_y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 1)
+    return batch_fwd<T, 1>(x, out, sq, partial, tickets, w, b, rm, rv, count, p, rows, c, rgrid,
+                           rblock, grid, block, relu, update, st);
+  return batch_fwd<T, kVec>(x, out, sq, partial, tickets, w, b, rm, rv, count, p, rows, c, rgrid,
+                            rblock, grid, block, relu, update, st);
+}
+
+// The backward's two launches of either family (kBatch: the bn_batch_ kernels).
+template <typename T, int V, bool kRelu, bool kBatch>
 int bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const float* w,
         const float* b, float* partial, unsigned int* tickets, float* coef, float* dw, float* db,
         const Params& p, int64_t rows, int c, dim3 reduce_grid, dim3 reduce_block, dim3 grid,
@@ -418,14 +616,23 @@ int bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const flo
   using Raw = typename Lanes<T, V>::Raw;
   const bool vec_stats = V > 1 && aligned16(s) && aligned16(q) && aligned16(w) &&
                          aligned16(b) && aligned16(coef);
-  bn_train_bwd_reduce_kernel<T, V, kRelu><<<reduce_grid, reduce_block, 0, st>>>(
-      reinterpret_cast<const Raw*>(g), reinterpret_cast<const Raw*>(y), s, q, w, b, p, rows,
-      c / V, vec_stats, partial, tickets, coef, dw, db);
+  const Raw* gr = reinterpret_cast<const Raw*>(g);
+  const Raw* yr = reinterpret_cast<const Raw*>(y);
+  if constexpr (kBatch)
+    bn_batch_bwd_reduce_kernel<T, V, kRelu><<<reduce_grid, reduce_block, 0, st>>>(
+        gr, yr, s, q, w, b, p, rows, c / V, vec_stats, partial, tickets, coef, dw, db);
+  else
+    bn_train_bwd_reduce_kernel<T, V, kRelu><<<reduce_grid, reduce_block, 0, st>>>(
+        gr, yr, s, q, w, b, p, rows, c / V, vec_stats, partial, tickets, coef, dw, db);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  bn_train_bwd_apply_kernel<T, V, kRelu><<<grid, block, 0, st>>>(
-      reinterpret_cast<const Raw*>(g), reinterpret_cast<const Raw*>(y), reinterpret_cast<Raw*>(dy),
-      s, q, w, b, coef, p, rows, c / V, vec_stats);
+  Raw* dyr = reinterpret_cast<Raw*>(dy);
+  if constexpr (kBatch)
+    bn_batch_bwd_apply_kernel<T, V, kRelu><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
+                                                                  p, rows, c / V, vec_stats);
+  else
+    bn_train_bwd_apply_kernel<T, V, kRelu><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
+                                                                  p, rows, c / V, vec_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,7 +640,7 @@ int bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const flo
 // threads, reduce_grid_x row groups by reduce_grid_y chunks, `partial`
 // [reduce_grid_x][2][C] and one zeroed ticket a chunk; the apply pass the
 // forward's plan.
-template <typename T, int kVec>
+template <typename T, int kVec, bool kBatch>
 int launch_bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const float* w,
                const float* b, float* partial, unsigned int* tickets, float* coef, float* dw,
                float* db, Params p, int64_t rows, int c, int vec, int reduce_x, int reduce_y,
@@ -447,15 +654,15 @@ int launch_bwd(const T* g, const T* y, T* dy, const float* s, const float* q, co
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 1) {
-    return relu ? bwd<T, 1, true>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p, rows,
-                                  c, rgrid, rblock, grid, block, st)
-                : bwd<T, 1, false>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p,
-                                   rows, c, rgrid, rblock, grid, block, st);
+    return relu ? bwd<T, 1, true, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+                                          p, rows, c, rgrid, rblock, grid, block, st)
+                : bwd<T, 1, false, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+                                           p, rows, c, rgrid, rblock, grid, block, st);
   }
-  return relu ? bwd<T, kVec, true>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p,
-                                   rows, c, rgrid, rblock, grid, block, st)
-              : bwd<T, kVec, false>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p,
-                                    rows, c, rgrid, rblock, grid, block, st);
+  return relu ? bwd<T, kVec, true, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+                                           p, rows, c, rgrid, rblock, grid, block, st)
+              : bwd<T, kVec, false, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+                                            p, rows, c, rgrid, rblock, grid, block, st);
 }
 
 }  // namespace
@@ -496,7 +703,7 @@ int vaeunet_bn_train_bwd_f32(const float* g, const float* y, float* dy, const fl
                              float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                              int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
                              int block_y, int grid_x, int grid_y, int relu, void* stream) {
-  return launch_bwd<float, 4>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+  return launch_bwd<float, 4, false>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
                               Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x,
                               reduce_y, reduce_grid_x, reduce_grid_y, block_x, block_y, grid_x,
                               grid_y, relu, stream);
@@ -508,7 +715,66 @@ int vaeunet_bn_train_bwd_bf16(const void* g, const void* y, void* dy, const floa
                               float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                               int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
                               int block_y, int grid_x, int grid_y, int relu, void* stream) {
-  return launch_bwd<__nv_bfloat16, 8>(
+  return launch_bwd<__nv_bfloat16, 8, false>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(y),
+      static_cast<__nv_bfloat16*>(dy), s, q, w, b, partial, tickets, coef, dw, db,
+      Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x, reduce_y, reduce_grid_x,
+      reduce_grid_y, block_x, block_y, grid_x, grid_y, relu, stream);
+}
+
+// x and out [rows, c] (a channels_last tensor); sq float32 [2][c], the
+// moments it fills (s, then q); partial [reduce_grid_x][2][c] and tickets
+// (one zeroed a chunk) the moments' scratch; weight, bias, running mean and
+// var float32 [c]; count the int64 batch counter; then the scalars, the
+// moments' plan (block, grid), the normalisation's (V, block, grid) and
+// flags: 1 ReLU, 2 move the running statistics.  Two launches; returns a
+// cudaError_t: 0, a launch's, or that of a refused plan.
+int vaeunet_bn_batch_fwd_f32(const float* x, float* out, float* sq, float* partial,
+                             unsigned int* tickets, const float* w, const float* b, float* rm,
+                             float* rv, long long* count, float inv_n, float eps, float momentum,
+                             float keep, float unbias, int64_t rows, int c, int vec, int reduce_x,
+                             int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
+                             int block_y, int grid_x, int grid_y, int flags, void* stream) {
+  return launch_batch_fwd<float, 4>(x, out, sq, partial, tickets, w, b, rm, rv, count,
+                                    Params{inv_n, eps, momentum, keep, unbias}, rows, c, vec,
+                                    reduce_x, reduce_y, reduce_grid_x, reduce_grid_y, block_x,
+                                    block_y, grid_x, grid_y, flags, stream);
+}
+
+int vaeunet_bn_batch_fwd_bf16(const void* x, void* out, float* sq, float* partial,
+                              unsigned int* tickets, const float* w, const float* b, float* rm,
+                              float* rv, long long* count, float inv_n, float eps, float momentum,
+                              float keep, float unbias, int64_t rows, int c, int vec, int reduce_x,
+                              int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
+                              int block_y, int grid_x, int grid_y, int flags, void* stream) {
+  return launch_batch_fwd<__nv_bfloat16, 8>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), sq, partial,
+      tickets, w, b, rm, rv, count, Params{inv_n, eps, momentum, keep, unbias}, rows, c, vec,
+      reduce_x, reduce_y, reduce_grid_x, reduce_grid_y, block_x, block_y, grid_x, grid_y, flags,
+      stream);
+}
+
+// The bn_batch backward: vaeunet_bn_train_bwd_*'s arguments, with s and q
+// the moments the forward entry wrote.
+int vaeunet_bn_batch_bwd_f32(const float* g, const float* y, float* dy, const float* s,
+                             const float* q, const float* w, const float* b, float* partial,
+                             unsigned int* tickets, float* coef, float* dw, float* db,
+                             float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
+                             int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
+                             int block_y, int grid_x, int grid_y, int relu, void* stream) {
+  return launch_bwd<float, 4, true>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
+                                    Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x,
+                                    reduce_y, reduce_grid_x, reduce_grid_y, block_x, block_y,
+                                    grid_x, grid_y, relu, stream);
+}
+
+int vaeunet_bn_batch_bwd_bf16(const void* g, const void* y, void* dy, const float* s,
+                              const float* q, const float* w, const float* b, float* partial,
+                              unsigned int* tickets, float* coef, float* dw, float* db,
+                              float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
+                              int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
+                              int block_y, int grid_x, int grid_y, int relu, void* stream) {
+  return launch_bwd<__nv_bfloat16, 8, true>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(y),
       static_cast<__nv_bfloat16*>(dy), s, q, w, b, partial, tickets, coef, dw, db,
       Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x, reduce_y, reduce_grid_x,

@@ -16,6 +16,8 @@ the reference state-dict names (``double_conv.{0,1,3,4}``,
 Both 3x3 convs of a :class:`DoubleConv` go through
 :func:`~vaeunet_tpu_torch.ops.layers.conv3x3_bn`: the fused conv + moments
 kernel in training, ``F.conv2d`` and the ``bn_relu`` kernel in eval.  The
+gate's three training BNs take the ``bn_batch`` kernels on the card
+(``BatchNorm.forward``); its ``relu(BN + BN)`` stays a torch op.  The
 bilinear upsample is the resize kernel (``ops/resize.py``).
 """
 

@@ -18,8 +18,10 @@ Attribute names are the reference state-dict names (``conv1``, ``bn1``,
 pair goes through :func:`conv3x3_bn`, the fused conv + moments kernel: a
 basic block's ``conv2`` and stride-1 ``conv1`` (29 per resnet34 forward),
 a bottleneck block's stride-1 ``conv2`` (13 per resnet50 forward).  The
-stem 7x7, the 1x1 convs and the stride-2 3x3 convs keep ``F.conv2d`` and a
-batch-statistics BN.
+stem 7x7, the 1x1 convs and the stride-2 3x3 convs keep ``F.conv2d``, and
+their BNs run through the module, which on the card is the ``bn_batch``
+kernels (a moments pass, then the normalisation), the ReLU of a BN -> ReLU
+pair inside them; the residual add and its ReLU stay torch ops.
 
 ``use_remat`` rematerializes each residual block in the backward
 (``ops/remat.py``; the JAX ``nn.remat`` of ``resnet.py:118-141``).

@@ -16,7 +16,10 @@ Every eval BN -> ReLU pair (``z_initial``, ``z_proj``, decoder ``bn1`` /
 ``bn2`` and the encoder's) goes through the fused kernel; the gate BNs and
 the BNs before a residual add are plain ``nn.BatchNorm2d``.  In training,
 the decoder's ``conv1``/``bn1`` and ``conv2``/``bn2`` take the fused conv +
-moments kernel (:func:`conv3x3_bn`, 8 per forward).  The ``z_proj`` BN
+moments kernel (:func:`conv3x3_bn`, 8 per forward); every other training BN
+(``z_initial`` and ``z_proj`` with their ReLU inside, the gates' three, the
+encoder's off the fused sites) takes the ``bn_batch`` kernels through
+:meth:`BatchNorm.forward` on the card, torch's BN on the CPU.  The ``z_proj`` BN
 sees the latent broadcast over B x H x W, so its unbiased running-variance
 factor uses that count, which is what the JAX fused decoder's
 ``virtual_n=b*h*w`` restores (``vae_unet.py:196-202``).

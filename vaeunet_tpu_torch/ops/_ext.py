@@ -76,6 +76,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # 1 / n, eps; rows; C, V, the sums pass's block and grid, dy's, relu
         "vaeunet_bn_train_bwd_f32": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
         "vaeunet_bn_train_bwd_bf16": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
+        # x, out, moments, partial, tickets, weight, bias, running mean, var,
+        # count; 1 / n, eps, momentum, 1 - momentum, n / (n - 1); rows; C, V,
+        # the moments' block and grid, the normalisation's, flags
+        "vaeunet_bn_batch_fwd_f32": [_P] * 10 + [_F] * 5 + [_I64] + [_I] * 11 + [_P],
+        "vaeunet_bn_batch_fwd_bf16": [_P] * 10 + [_F] * 5 + [_I64] + [_I] * 11 + [_P],
+        # as vaeunet_bn_train_bwd_*
+        "vaeunet_bn_batch_bwd_f32": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
+        "vaeunet_bn_batch_bwd_bf16": [_P] * 12 + [_F, _F, _I64] + [_I] * 11 + [_P],
     },
     "resize": {
         "vaeunet_resize_f32": _RESIZE_TILED_ARGS,
@@ -119,10 +127,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # "ext_calls" and "ext_call_ns": the calls of `call` and their host
 # nanoseconds, entry to return, counted only while a profiler session runs.
 # "bn_torch" and "bn_torch_bytes": the training-mode BatchNorm forwards that
-# run on torch's ops rather than the "bn_train" kernels (``ops/layers.py``:
-# the 1x1 and strided sites, the latent and gate BNs, the remat recompute,
-# the DP group's moments) and their inputs' bytes, counted only while a
-# profiler session runs; a remat recompute counts its BNs again.
+# run on torch's ops rather than the "bn_train" or "bn_batch" kernels
+# (``ops/layers.py``: CPU tensors and the DP group's moments) and their
+# inputs' bytes, counted only while a profiler session runs; a remat
+# recompute counts its BNs again.
+# "bn_batch_fwd" and "bn_batch_bwd" count the C calls of the training BNs
+# over their own moments (``ops/pallas/bn_train.py::bn_batch``: two launches
+# each way), "bn_batch_bytes" their inputs' bytes while a profiler runs.
 # "tiles" and "tile_slots": the tiles of the tiled requests' grids and the
 # encoder batch slots they took, padding included.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
@@ -132,6 +143,7 @@ LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0
                             "bn_train_fwd": 0, "bn_train_bwd": 0,
                             "clip_adamw_norm": 0, "clip_adamw_update": 0, "clip_adamw_elems": 0,
                             "bn_torch": 0, "bn_torch_bytes": 0,
+                            "bn_batch_fwd": 0, "bn_batch_bwd": 0, "bn_batch_bytes": 0,
                             "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -149,6 +161,12 @@ def count_torch_bn(x: torch.Tensor) -> None:
     if _torch_profiler._is_profiler_enabled:
         LAUNCHES["bn_torch"] += 1
         LAUNCHES["bn_torch_bytes"] += x.numel() * x.element_size()
+
+
+def count_bytes(counter: str, x: torch.Tensor) -> None:
+    """Add `x`'s bytes to `counter`, while a profiler session runs."""
+    if _torch_profiler._is_profiler_enabled:
+        LAUNCHES[counter] += x.numel() * x.element_size()
 
 
 def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:

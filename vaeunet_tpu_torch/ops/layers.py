@@ -9,6 +9,11 @@ them to XLA), in the input's type as the JAX ``Conv`` computes them
 
 - :func:`bn_relu` sends every eval-mode BatchNorm -> ReLU pair through the
   fused kernel of ``ops/pallas/bn_relu.py``;
+- :meth:`BatchNorm.forward` sends every training-mode BN of a CUDA tensor
+  whose ``group`` is None through ``ops/pallas/bn_train.py::bn_batch``
+  (a moments pass, then the ``bn_train`` math on the ``bn_batch_`` kernels),
+  with the ReLU of a BN -> ReLU pair inside it (``relu=True``, as
+  :func:`bn_relu` and the strided branch of :func:`conv3x3_bn` call it);
 - :func:`conv3x3_bn` sends every stride-1, pad-1, bias-free 3x3 conv that
   feeds a training-mode BatchNorm through ``ops/pallas/conv_bn_stats.py``,
   whose moments the BN normalizes with (the JAX ``BatchNorm(moments=...)``,
@@ -35,10 +40,10 @@ kernel's (s, q) at the :func:`conv3x3_bn` sites, fp32 Σx and Σx² at the
 plain sites (the strided convs, the 1x1 downsamples, the latent and gate
 BNs).  ``group`` is None outside such a step.
 
-Every training-mode BN that runs on torch's ops (the plain and remat
-branches of :meth:`BatchNorm.forward`, :meth:`BatchNorm.forward_moments`)
-adds to ``_ext.LAUNCHES``' ``bn_torch`` and ``bn_torch_bytes`` while a
-profiler session runs; the ``bn_train`` kernels count themselves.
+Every training-mode BN that runs on torch's ops (a CPU tensor's, and
+:meth:`BatchNorm.forward_moments`) adds to ``_ext.LAUNCHES``' ``bn_torch``
+and ``bn_torch_bytes`` while a profiler session runs; the ``bn_train`` and
+``bn_batch`` kernels count themselves.
 
 Inside the recompute of a rematerialized block (``ops/remat.py``) a
 training-mode :class:`BatchNorm` normalizes as it did in the forward but
@@ -60,7 +65,7 @@ import torch.distributed as dist
 from vaeunet_tpu_torch.ops._ext import count_torch_bn
 from vaeunet_tpu_torch.ops.collectives import all_reduce_sum
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
-from vaeunet_tpu_torch.ops.pallas.bn_train import (Running, bn_train, fold_moments,
+from vaeunet_tpu_torch.ops.pallas.bn_train import (Running, bn_batch, bn_train, fold_moments,
                                                    move_running, normalize_plain)
 from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats, fold_cotangents
 
@@ -126,20 +131,31 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """BN of `x`, then ReLU if `relu`.  Training mode on a CUDA tensor:
+        the ``bn_batch`` kernels, the ReLU inside them; with ``group`` set,
+        :meth:`forward_moments` on the group's moments; on the CPU torch's
+        training BN.  Eval mode: torch's BN."""
         if self.training and self.group is not None:
             x32 = x.float()
-            return self.forward_moments(x, x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
-        if self.training:
-            count_torch_bn(x)
-        if self.training and remat.bn_frozen():
-            # the same call on copies of the running statistics: the same
-            # output, and the update lands in the copies.  Not None instead:
-            # batch_norm would then save two tensors fewer for the backward
-            # than in the forward, and the checkpoint matches them by count
-            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
-                                self.weight, self.bias, True, self.momentum, self.eps)
-        return super().forward(x)
+            y = self.forward_moments(x, x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
+        elif self.training and x.is_cuda:
+            running = None if remat.bn_frozen() else self._running()
+            return bn_batch(x, self.weight, self.bias, relu, self.eps, running)
+        else:
+            if self.training:
+                count_torch_bn(x)
+            if self.training and remat.bn_frozen():
+                # the same call on copies of the running statistics: the same
+                # output, and the update lands in the copies.  Not None
+                # instead: batch_norm would then save two tensors fewer for
+                # the backward than in the forward, and the checkpoint
+                # matches them by count
+                y = F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                 self.weight, self.bias, True, self.momentum, self.eps)
+            else:
+                y = super().forward(x)
+        return F.relu(y) if relu else y
 
     def forward_moments(self, y: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """Training-mode BN of `y` from its per-channel fp32 sum `s` and sum
@@ -174,11 +190,13 @@ class BatchNorm(nn.BatchNorm2d):
                        self.momentum)
 
 
-def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def bn_relu(x: torch.Tensor, bn: BatchNorm) -> torch.Tensor:
     """ReLU(bn(x)).  In eval mode: the fused kernel (plain version on the
-    CPU).  In training mode: batch-statistics BN, then ReLU."""
+    CPU).  In training mode: the module's batch-statistics BN with the ReLU
+    inside it (one ``bn_batch`` node on the card), called through the
+    module so that its hooks see it."""
     if bn.training:
-        return F.relu(bn(x))
+        return bn(x, relu=True)
     return fused_bn_relu(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
 
 
@@ -224,10 +242,12 @@ def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.
     """bn(conv(x)) of a bias-free 3x3 conv, then ReLU if `relu`.  A
     training-mode BN after a conv of the kernel's shape takes the fused
     conv + moments kernel, then the ``bn_train`` kernels for BN and ReLU
-    (torch ops where ``bn.group`` sums the moments over ranks); anything
-    else (eval mode, a strided conv) keeps ``F.conv2d`` and, for a BN ->
-    ReLU pair in eval mode, the ``bn_relu`` kernel, as before.  In training
-    the conv's products are the ones remat ``'save_convs'`` keeps."""
+    (torch ops where ``bn.group`` sums the moments over ranks).  A strided
+    conv in training keeps ``F.conv2d``, and its BN and ReLU go through
+    the module (:meth:`BatchNorm.forward`: the ``bn_batch`` kernels on the
+    card).  In eval mode: ``F.conv2d``, then for a BN -> ReLU pair the
+    ``bn_relu`` kernel.  In training the conv's products are the ones remat
+    ``'save_convs'`` keeps."""
     if conv.bias is not None:
         raise ValueError("conv3x3_bn takes a bias-free conv")
     if not bn.training:
@@ -241,7 +261,6 @@ def conv3x3_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, relu: bool) -> torch.
         if bn.group is None:
             return bn.forward_fused(y, s, q, relu)
         y = bn.forward_moments(y, s, q)
-    else:
-        (y,) = _kept(conv, x, w, lambda: (conv.local_conv(x, w),))
-        y = bn(conv.tp_output(y))
-    return F.relu(y) if relu else y
+        return F.relu(y) if relu else y
+    (y,) = _kept(conv, x, w, lambda: (conv.local_conv(x, w),))
+    return bn(conv.tp_output(y), relu=relu)

@@ -34,6 +34,16 @@ A CUDA tensor goes to ``csrc/bn_train.cu``: one launch forward, two
 backward (the sums, then dy), counted as ``bn_train_fwd`` and
 ``bn_train_bwd``.  A CPU tensor goes to :func:`bn_train_plain` and
 :func:`bn_train_backward_plain`.
+
+``bn_batch(x, weight, bias, relu, eps, running) -> out`` is the same BN for
+a tensor that comes without its moments: every training-mode BN outside the
+fused 3x3 sites (``ops/layers.py::BatchNorm.forward``).  s and q are x's own
+fp32 sum and sum of squares, and the rest is ``bn_train``'s math, backward
+included.  On the card it is the ``bn_batch_`` kernels of the same source:
+one C call forward (the moments pass, then the normalisation) and one
+backward (the two passes above), counted as ``bn_batch_fwd`` and
+``bn_batch_bwd``, with x's bytes in ``bn_batch_bytes`` while a profiler
+session runs.  On the CPU: :func:`bn_batch_plain`.
 """
 
 from __future__ import annotations
@@ -137,7 +147,7 @@ def reduce_plan(rows: int, channels: int, elem_size: int, aligned: bool, sms: in
     by as many rows as fill ``THREADS``; ``REDUCE_BLOCKS_PER_SM`` x `sms`
     blocks in all, fewer where the rows run out, each walking its share of
     the rows and writing one partial row, so that the last block adds up
-    few rows."""
+    few rows.  bn_batch's moments pass walks the same way."""
     p = bn_relu.plan(rows, channels, elem_size, aligned)
     vecs = channels // p.vec
     block_x = min(vecs, REDUCE_VECS)
@@ -153,25 +163,25 @@ def plan(rows: int, channels: int, elem_size: int, aligned: bool, sms: int) -> P
                 bn_relu.plan(rows, channels, elem_size, aligned))
 
 
-def _check(y: torch.Tensor, *named) -> None:
+def _check(y: torch.Tensor, *named, op: str = "bn_train") -> None:
     if y.dim() != 4 or y.numel() == 0:
-        raise ValueError(f"bn_train expects a non-empty NCHW tensor, got {tuple(y.shape)}")
+        raise ValueError(f"{op} expects a non-empty NCHW tensor, got {tuple(y.shape)}")
     if y.dtype not in _DTYPES:
-        raise TypeError(f"bn_train takes float32 or bfloat16, not {y.dtype}")
+        raise TypeError(f"{op} takes float32 or bfloat16, not {y.dtype}")
     if not y.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("bn_train expects a channels_last-contiguous tensor")
+        raise ValueError(f"{op} expects a channels_last-contiguous tensor")
     c, device = y.shape[1], y.device
     for name, v in named:
         if (v.dtype is not torch.float32 or v.shape != (c,) or v.device != device
                 or not v.is_contiguous()):
-            raise ValueError(f"bn_train: {name} must be a contiguous float32 [{c}] on {device}")
+            raise ValueError(f"{op}: {name} must be a contiguous float32 [{c}] on {device}")
 
 
-def _check_running(y: torch.Tensor, running: Running) -> None:
-    _check(y, ("running mean", running.mean), ("running var", running.var))
+def _check_running(y: torch.Tensor, running: Running, op: str = "bn_train") -> None:
+    _check(y, ("running mean", running.mean), ("running var", running.var), op=op)
     if (running.count.dtype is not torch.int64 or running.count.numel() != 1
             or running.count.device != y.device):
-        raise ValueError(f"bn_train: the batch counter must be one int64 on {y.device}")
+        raise ValueError(f"{op}: the batch counter must be one int64 on {y.device}")
 
 
 def inverse_n(n: int) -> float:
@@ -254,6 +264,12 @@ def backward_launch_args(g, y, dy, s, q, weight, bias, relu: bool, eps: float):
     """(C entry, arguments less the stream, (dweight, dbias) it fills, the
     scratch to keep alive until the launch) of the backward from `g` into
     `dy`, all three channels_last and of y's type."""
+    return _backward_args("vaeunet_bn_train_bwd_", g, y, dy, s.data_ptr(), q.data_ptr(), weight,
+                          bias, relu, eps)
+
+
+def _backward_args(entry: str, g, y, dy, s_ptr: int, q_ptr: int, weight, bias, relu: bool,
+                   eps: float):
     c = y.shape[1]
     rows = y.numel() // c
     aligned = (g.data_ptr() | y.data_ptr() | dy.data_ptr()) % bn_relu.VEC_BYTES == 0
@@ -266,9 +282,8 @@ def backward_launch_args(g, y, dy, s, q, weight, bias, relu: bool, eps: float):
     grads = torch.empty((2, c), dtype=torch.float32, device=y.device)
     ticket = tickets(y.device, p.reduce.grid[1])
     base = scratch.data_ptr()
-    fn = "vaeunet_bn_train_bwd_f32" if y.dtype == torch.float32 else "vaeunet_bn_train_bwd_bf16"
-    args = (g.data_ptr(), y.data_ptr(), dy.data_ptr(), s.data_ptr(), q.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), base + 8 * c, ticket.data_ptr(), base,
+    fn = entry + ("f32" if y.dtype == torch.float32 else "bf16")
+    args = (g.data_ptr(), y.data_ptr(), dy.data_ptr(), s_ptr, q_ptr, weight.data_ptr(), bias.data_ptr(), base + 8 * c, ticket.data_ptr(), base,
             grads[0].data_ptr(), grads[1].data_ptr(), inv_n, eps, rows, c, p.apply.vec,
             *p.reduce.block, *p.reduce.grid, *p.apply.block, *p.apply.grid, int(relu))
     return fn, args, (grads[0], grads[1]), (scratch, ticket)
@@ -324,3 +339,126 @@ def bn_train(y: torch.Tensor, s: torch.Tensor, q: torch.Tensor, weight: torch.Te
     if running is not None:
         _check_running(y, running)
     return _BnTrain.apply(y, s, q, weight, bias, relu, eps, running)
+
+
+# ----- training BN over the batch's own moments ------------------------------
+
+def batch_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """[2, C]: x's fp32 sum and sum of squares over (N, H, W)."""
+    x32 = x.float()
+    return torch.stack([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3))])
+
+
+def bn_batch_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, relu: bool,
+                   eps: float = 1e-5, running: Optional[Running] = None) -> torch.Tensor:
+    """The forward in torch ops: :func:`bn_train_plain` on x's own moments."""
+    s, q = batch_moments_plain(x)
+    return bn_train_plain(x, s, q, weight, bias, relu, eps, running)
+
+
+def batch_forward_launch_args(x, out, weight, bias, relu: bool, eps: float,
+                              running: Optional[Running]):
+    """(C entry, arguments less the stream, the fp32 scratch whose first
+    2 C values the launch fills with s and q) of the forward from `x` into
+    `out`, both channels_last.  The rest of the scratch is the moments
+    pass's partial rows, [blocks, 2, C]."""
+    c = x.shape[1]
+    rows = x.numel() // c
+    aligned = (x.data_ptr() | out.data_ptr()) % bn_relu.VEC_BYTES == 0
+
+    def make():
+        p = plan(rows, c, x.element_size(), aligned, _sms(x.device))
+        return (inverse_n(rows), rows / max(rows - 1, 1), (p.reduce.grid[0] + 1) * 2 * c,
+                p.reduce.grid[1], (rows, c, p.apply.vec, *p.reduce.block, *p.reduce.grid,
+                                   *p.apply.block, *p.apply.grid))
+
+    inv_n, unbias, scratch_len, chunks, planned = _cached(
+        ("batch", rows, c, x.dtype, aligned, x.device), make)
+    scratch = torch.empty(scratch_len, dtype=torch.float32, device=x.device)
+    ticket = tickets(x.device, chunks)
+    if running is None:
+        stats, m, flags = (0, 0, 0), 0.0, 0
+    else:
+        stats = (running.mean.data_ptr(), running.var.data_ptr(), running.count.data_ptr())
+        m, flags = running.momentum, 2
+    base = scratch.data_ptr()
+    fn = "vaeunet_bn_batch_fwd_f32" if x.dtype == torch.float32 else "vaeunet_bn_batch_fwd_bf16"
+    return fn, (x.data_ptr(), out.data_ptr(), base, base + 8 * c, ticket.data_ptr(),
+                weight.data_ptr(), bias.data_ptr(), *stats, inv_n, eps, m, 1.0 - m, unbias,
+                *planned, flags | int(relu)), scratch
+
+
+def batch_backward_launch_args(g, x, dx, moments, weight, bias, relu: bool, eps: float):
+    """:func:`backward_launch_args` of the ``bn_batch_`` kernels, with s and
+    q the first 2 C values of `moments` (the forward's scratch)."""
+    c = x.shape[1]
+    base = moments.data_ptr()
+    return _backward_args("vaeunet_bn_batch_bwd_", g, x, dx, base, base + 4 * c, weight, bias,
+                          relu, eps)
+
+
+def _batch_forward_cuda(x, weight, bias, relu: bool, eps: float, running: Optional[Running]):
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    fn, args, moments = batch_forward_launch_args(x, out, weight, bias, relu, eps, running)
+    _ext.call("bn_train", fn, x.device, *args)
+    _ext.count_launch("bn_batch_fwd")
+    _ext.count_bytes("bn_batch_bytes", x)
+    return out, moments
+
+
+def _batch_backward_cuda(g, x, moments, weight, bias, relu: bool, eps: float):
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    fn, args, (dw, db), _ = batch_backward_launch_args(g, x, dx, moments, weight, bias, relu, eps)
+    _ext.call("bn_train", fn, x.device, *args)
+    _ext.count_launch("bn_batch_bwd")
+    return dx, dw, db
+
+
+class _BnBatch(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, relu, eps, running):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            moments = batch_moments_plain(x)
+            out = bn_train_plain(x, moments[0], moments[1], weight, bias, relu, eps, running)
+            moments = moments.view(-1)
+        elif x.device.type == "cuda":
+            out, moments = _batch_forward_cuda(x, weight, bias, relu, eps, running)
+        else:
+            raise ValueError(f"bn_batch: unsupported device {x.device}")
+        ctx.relu, ctx.eps = relu, eps
+        ctx.save_for_backward(x, moments, weight, bias)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if g is None:
+            return (None,) * 6
+        x, moments, weight, bias = ctx.saved_tensors
+        if g.dtype != x.dtype or not g.is_contiguous(memory_format=torch.channels_last):
+            g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        if x.device.type == "cpu":
+            c = x.shape[1]
+            dx, dw, db = bn_train_backward_plain(g, x, moments[:c], moments[c:2 * c], weight,
+                                                 bias, ctx.relu, ctx.eps)
+        else:
+            dx, dw, db = _batch_backward_cuda(g, x, moments, weight, bias, ctx.relu, ctx.eps)
+        need = ctx.needs_input_grad
+        return dx, dw if need[1] else None, db if need[2] else None, None, None, None
+
+
+def bn_batch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, relu: bool,
+             eps: float = 1e-5, running: Optional[Running] = None) -> torch.Tensor:
+    """Training-mode BN (+ ReLU) of `x` over its own batch statistics; see
+    the module docstring.  A tensor that is not channels_last-contiguous
+    is made so first.  Differentiable in x and the affine parameters."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    _check(x, ("weight", weight), ("bias", bias), op="bn_batch")
+    if running is not None:
+        _check_running(x, running, op="bn_batch")
+    if x.numel() == x.shape[1]:
+        raise ValueError(f"bn_batch: expected more than 1 value per channel when training, "
+                         f"got input size {tuple(x.shape)}")
+    return _BnBatch.apply(x, weight, bias, relu, eps, running)

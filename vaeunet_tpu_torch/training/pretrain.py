@@ -17,7 +17,8 @@ so two pretext tasks train the encoder on the unlabeled fundus patches:
 The encoder's bias-free stride-1 3x3 convs take the conv + moments kernel
 in training (``models/resnet.py``).  The head's convs carry a bias and no
 padding (the JAX ``Conv(w, kernel_size=3)``: ``use_bias=True``, ``padding
-= 0``), so they stay cuDNN + ``BatchNorm`` as in JAX, and the BN -> ReLU
+= 0``), so they stay cuDNN + ``BatchNorm`` as in JAX (the ``bn_batch``
+kernels in training on the card, the ReLU inside), and the BN -> ReLU
 pairs take ``bn_relu`` in eval mode; the head's resizes go through
 ``ops/resize.py``.  The optimizer is the JAX ``optax.chain(
 clip_by_global_norm(1.0), adamw(lr, weight_decay=wd))``: ``ClippedAdamW``.
