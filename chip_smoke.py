@@ -1224,6 +1224,9 @@ def kernel_bn_train(table: dict) -> None:
 # before its ReLU): a resnet50 bn3 at batch 32, a UNet gate's 32-wide BN and
 # its psi at batch 16
 BN_BATCH_SHAPES = ((32, 256, 128, 128), (16, 32, 512, 512), (16, 1, 512, 512))
+# the EfficientNet-B4 VAE-UNet's BN + SiLU sites at 512^2, batch 32: the first
+# expansion at 256^2, a stage-1 expansion at 128^2, the widest at 16^2
+BN_BATCH_SILU_SHAPES = ((32, 144, 256, 256), (32, 192, 128, 128), (32, 1632, 16, 16))
 
 
 def kernel_bn_batch(table: dict) -> None:
@@ -1236,10 +1239,14 @@ def kernel_bn_batch(table: dict) -> None:
     plain versions, training ``F.batch_norm`` and its autograd backward as
     the yardstick (the path these kernels replaced); the bounds, x in and
     out out forward (the moments pass reads x once more), g and x in and
-    dx out backward."""
+    dx out backward.  The identity at ``BN_BATCH_SHAPES``, the SiLU (against
+    ``F.batch_norm`` + ``F.silu``) at ``BN_BATCH_SILU_SHAPES``."""
     g = torch.Generator(device="cuda").manual_seed(19)
     cl = torch.channels_last
-    for shape in BN_BATCH_SHAPES:
+    silu = bn_train_mod.SILU
+    cases = [(shape, 0) for shape in BN_BATCH_SHAPES]
+    cases += [(shape, silu) for shape in BN_BATCH_SILU_SHAPES]
+    for shape, act in cases:
         c = shape[1]
         x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.5).to(torch.bfloat16)
         x = x.contiguous(memory_format=cl)
@@ -1251,16 +1258,16 @@ def kernel_bn_batch(table: dict) -> None:
                  torch.zeros((), dtype=torch.int64, device="cuda"))
         ours = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
         ref = bn_train_mod.Running(*(t.clone() for t in stats), 0.1)
-        out, moments = bn_train_mod._batch_forward_cuda(x, w, b, False, 1e-5, ours)
+        out, moments = bn_train_mod._batch_forward_cuda(x, w, b, act, 1e-5, ours)
         s, q = moments[:c], moments[c:2 * c]
         x32 = x.float()
         sums = (x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
         err_m = max(((k - z).abs() / z.abs().clamp_min(1e-30)).max().item()
                     for k, z in zip((s, q), sums))
         del x32
-        want = bn_train_mod.bn_train_plain(x, s.clone(), q.clone(), w, b, False, 1e-5, ref)
+        want = bn_train_mod.bn_train_plain(x, s.clone(), q.clone(), w, b, act, 1e-5, ref)
         torch.cuda.synchronize()
-        name = f"bn_batch {list(shape)} bf16"
+        name = f"bn_batch {list(shape)} bf16" + (" SiLU" if act else "")
         check(err_m <= 1e-5,
               f"{name}: the moments differ from x's fp32 sums by {err_m} relative")
         check(torch.equal(out, want) and all(torch.equal(v, z) for v, z in zip(ours, ref)
@@ -1269,14 +1276,14 @@ def kernel_bn_batch(table: dict) -> None:
         del want
 
         def backward():
-            return bn_train_mod._batch_backward_cuda(grad, x, moments, w, b, False, 1e-5)
+            return bn_train_mod._batch_backward_cuda(grad, x, moments, w, b, act, 1e-5)
 
         first = [t.clone() for t in backward()]
         again = backward()
         torch.cuda.synchronize()
         check(all(torch.equal(v, z) for v, z in zip(first, again)),
               f"{name}: the backward does not repeat bit for bit")
-        plain = bn_train_mod.bn_train_backward_plain(grad, x, s, q, w, b, False, 1e-5)
+        plain = bn_train_mod.bn_train_backward_plain(grad, x, s, q, w, b, act, 1e-5)
         _, _, inv = bn_train_mod.fold_moments(s, q, x.numel() // c, 1e-5, w)
         top = max(plain[0].float().abs().max().item(),
                   inv.abs().max().item() * grad.float().abs().max().item())
@@ -1288,29 +1295,30 @@ def kernel_bn_batch(table: dict) -> None:
                      for v, z in zip(first[1:], plain[1:]))
         check(err_wb <= 1e-4, f"{name}: dweight or dbias differ by {err_wb} of their max")
         del plain, diff, again
-        fn_f, args_f, keep_f = bn_train_mod.batch_forward_launch_args(x, out, w, b, False, 1e-5,
+        fn_f, args_f, keep_f = bn_train_mod.batch_forward_launch_args(x, out, w, b, act, 1e-5,
                                                                       None)
         dx = torch.empty_like(x, memory_format=cl)
         fn_b, args_b, _, keep_b = bn_train_mod.batch_backward_launch_args(grad, x, dx, moments,
-                                                                          w, b, False, 1e-5)
+                                                                          w, b, act, 1e-5)
         nbytes = x.numel() * x.element_size()
         it = iters_for(3 * nbytes)
         t = paired_ms({
-            "fwd_w": lambda: bn_train_mod.bn_batch(x, w, b, False, 1e-5, None),
+            "fwd_w": lambda: bn_train_mod.bn_batch(x, w, b, act, 1e-5, None),
             "fwd_a": lambda: _ext.call("bn_train", fn_f, x.device, *args_f),
             "bwd_w": backward,
             "bwd_a": lambda: _ext.call("bn_train", fn_b, x.device, *args_b)}, it)
         d_fwd = device_ms(lambda: _ext.call("bn_train", fn_f, x.device, *args_f), 10, 5)
         d_bwd = device_ms(lambda: _ext.call("bn_train", fn_b, x.device, *args_b), 10, 5)
-        plain_fwd = time_ms(lambda: bn_train_mod.bn_batch_plain(x, w, b, False), 5)
+        plain_fwd = time_ms(lambda: bn_train_mod.bn_batch_plain(x, w, b, act), 5)
         plain_bwd = time_ms(lambda: bn_train_mod.bn_train_backward_plain(grad, x, s, q, w, b,
-                                                                         False), 5)
+                                                                         act), 5)
         xl, wl, bl = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone(
         ).requires_grad_()
         rm, rv = stats[0].clone(), stats[1].clone()
 
         def library():
-            return F.batch_norm(xl, rm, rv, wl, bl, True, 0.1, 1e-5)
+            y = F.batch_norm(xl, rm, rv, wl, bl, True, 0.1, 1e-5)
+            return F.silu(y) if act else y
 
         lib_fwd = time_ms(library, 10)
         lib_out = library()
@@ -1322,7 +1330,7 @@ def kernel_bn_batch(table: dict) -> None:
         log(f"{name} forward: moments within {err_m:.3g} of x's fp32 sums, bit for bit on them "
             f"(running statistics too)  w {t['fwd_w']:.4f} ms  a {t['fwd_a']:.4f} ms  d "
             f"{d_fwd:.4f} ms ({bnd_fwd / d_fwd:.0%} of the bound)  plain {plain_fwd:.4f} ms  "
-            f"F.batch_norm {lib_fwd:.4f} ms  bound {bnd_fwd:.4f} ms ({by})  moments pass "
+            f"F.batch_norm{' + F.silu' if act else ''} {lib_fwd:.4f} ms  bound {bnd_fwd:.4f} ms ({by})  moments pass "
             f"{p.reduce.block} x {p.reduce.grid}, normalisation {p.apply.block} x "
             f"{p.apply.grid}")
         log(f"{name} backward: repeats bit for bit, dx max err {err:.3g} vs the plain closed "
@@ -1330,11 +1338,12 @@ def kernel_bn_batch(table: dict) -> None:
             f"{t['bwd_a']:.4f} ms  d {d_bwd:.4f} ms ({bnd_bwd / d_bwd:.0%} of the bound)  plain "
             f"{plain_bwd:.4f} ms  autograd of F.batch_norm {lib_bwd:.4f} ms  bound "
             f"{bnd_bwd:.4f} ms")
-        if shape == BN_BATCH_SHAPES[0]:
+        if shape in (BN_BATCH_SHAPES[0], BN_BATCH_SILU_SHAPES[0]):
+            pre = "bn_batch_silu" if act else "bn_batch"
             for key, ms, wrapper, dev, pl, lib, bnd in (
-                    ("bn_batch_fwd", t["fwd_a"], t["fwd_w"], d_fwd, plain_fwd, lib_fwd, bnd_fwd),
-                    ("bn_batch_bwd", t["bwd_a"], t["bwd_w"], d_bwd, plain_bwd, lib_bwd, bnd_bwd)):
-                _record(table, key, err=err if key == "bn_batch_bwd" else 0.0, ms=ms,
+                    (pre + "_fwd", t["fwd_a"], t["fwd_w"], d_fwd, plain_fwd, lib_fwd, bnd_fwd),
+                    (pre + "_bwd", t["bwd_a"], t["bwd_w"], d_bwd, plain_bwd, lib_bwd, bnd_bwd)):
+                _record(table, key, err=err if key.endswith("_bwd") else 0.0, ms=ms,
                         wrapper_ms=wrapper, device_ms=dev, plain_ms=pl, library_ms=lib,
                         bound_ms=bnd, bound_by="bytes", shape=f"{list(shape)} bf16")
         del x, grad, out, moments, dx, first, keep_f, keep_b, xl, lib_out

@@ -285,8 +285,10 @@ def test_bn_torch_readers():
     assert reg.read(roofline, r) is None
     r.kind = "uq"
     assert reg.read(per_step, r) is None and reg.read(roofline, r) is None
+    # the training cells of their time; cells added since read nothing there
+    # (no training BN runs on torch's ops) and are not listed
     for m in (per_step, roofline):
-        assert m["workloads"] == TRAIN_CELLS and m["moves"] == "train_img_per_s"
+        assert m["workloads"] == TRAIN_CELLS[:3] and m["moves"] == "train_img_per_s"
 
 
 def test_bn_batch_roofline_reads_the_bytes_over_the_bn_batch_kernels():

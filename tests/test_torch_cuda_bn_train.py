@@ -7,7 +7,11 @@ kernels, the sites' counts in a step, and the conv + BN site against the
 torch ops it replaced.  The same for the ``bn_batch_`` family (the BNs off
 the fused sites): its moments against fp32 sums, its forward against the
 plain version on its own moments bit for bit, its backward against the
-closed form and against autograd of torch's training BN.
+closed form and against autograd of torch's training BN; its SiLU at the
+EfficientNet-B4 cell's shapes against ``F.batch_norm`` + ``F.silu``.  The
+kernels a depthwise conv launches, forward and backward, against the names
+``benchmark/metrics/dwconv_roofline.py`` reads, which a dense 3x3 conv's
+kernels must not match.
 
 Marked ``cuda``; each test asks the ``cuda`` fixture for the card and skips
 without one.  This file imports neither jax nor the JAX package:
@@ -196,7 +200,7 @@ def test_one_call_forward_one_backward_no_torch_compute(cuda, monkeypatch):
     source = (_ext.CSRC / "bn_train.cu").read_text()
     # the forward's launch and the backward's two, of each family (the
     # bn_batch_ forward adds its moments pass)
-    assert source.count("bn_train_fwd_kernel<T, V, kRelu><<<") == 1
+    assert source.count("bn_train_fwd_kernel<T, V, kAct><<<") == 1
     assert source.count("<<<") == 3 + 4
 
 
@@ -272,7 +276,9 @@ def check_batch(x, grad, bn, relu):
     counter included); the backward bit for bit across runs and within
     ``check_backward``'s tolerance of the closed form; against autograd of
     torch's training BN (+ ReLU), relative L2 1e-4 in fp32 and 2e-2 in
-    bf16 (a few elements near 0 may fall on the other side of the ReLU)."""
+    bf16 (a few elements near 0 may fall on the other side of the ReLU;
+    torch's SiLU backward rounds g' to bf16, the kernel keeps it in fp32).
+    `relu` is the activation: False, True or ``bn_train.SILU``."""
     c = x.shape[1]
     ours = bn._running()
     ref = bn_train.Running(ours.mean.clone(), ours.var.clone(), ours.count.clone(),
@@ -313,7 +319,7 @@ def check_batch(x, grad, bn, relu):
     x2 = x.clone().requires_grad_()
     w2, b2 = bn.weight.detach().clone().requires_grad_(), bn.bias.detach().clone().requires_grad_()
     y2 = F.batch_norm(x2, None, None, w2, b2, True, 0.1, bn.eps)
-    y2 = F.relu(y2) if relu else y2
+    y2 = bn_train.activate_plain(y2, relu)
     theirs = torch.autograd.grad(y2, (x2, w2, b2), grad)
     tol = 1e-4 if x.dtype == torch.float32 else 2e-2
     for k, (a, b) in enumerate(zip((dx, dw, db), theirs)):
@@ -357,6 +363,86 @@ BATCH_SITES = [((32, 256, 128, 128), True), ((16, 32, 512, 512), False),
 def test_bn_batch_at_the_site_shapes(cuda, shape, relu):
     x, grad, bn = batch_inputs(shape, torch.bfloat16, cuda, seed=7)
     check_batch(x, grad, bn, relu)
+
+
+# the EfficientNet-B4 cell's BN + SiLU sites at 512^2, batch 32: the first
+# expansion at 256^2, a stage-1 expansion at 128^2, the widest at 16^2
+SILU_SITES = [(32, 144, 256, 256), (32, 192, 128, 128), (32, 1632, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", SILU_SITES)
+def test_bn_batch_silu_at_the_effb4_shapes(cuda, shape):
+    x, grad, bn = batch_inputs(shape, torch.bfloat16, cuda, seed=11)
+    before = _ext.launch_counts()["bn_batch_silu"]
+    check_batch(x, grad, bn, bn_train.SILU)
+    assert _ext.launch_counts()["bn_batch_silu"] == before + 1
+
+
+@pytest.mark.parametrize("shape,dtype,offset", BATCH_SMALL[::3])
+def test_bn_batch_silu_routes(cuda, shape, dtype, offset):
+    x, grad, bn = batch_inputs(shape, dtype, cuda, seed=shape[1] + offset, offset=offset)
+    check_batch(x, grad, bn, bn_train.SILU)
+
+
+def test_bn_train_refuses_the_silu(cuda):
+    """The fused sites' entries have no SiLU kernel: flag 4 is refused."""
+    y, s, q, _, bn = inputs((2, 64, 8, 8), torch.bfloat16, cuda)
+    out = torch.empty_like(y)
+    fn, args = bn_train.forward_launch_args(y, out, s, q, bn.weight, bn.bias, False, bn.eps, None)
+    with pytest.raises(RuntimeError):
+        _ext.call("bn_train", fn, y.device, *args[:-1], 4)
+
+
+def dwconv_kernels():
+    from benchmark.harness.registry import load_module
+
+    return load_module(__import__("pathlib").Path(__file__).resolve().parents[1] / "benchmark"
+                       / "metrics" / "dwconv_roofline.py", "dwconv_roofline").KERNELS
+
+
+def device_kernel_names(fn) -> set:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def conv_forward_backward(shape, weight, stride, padding, groups):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+        memory_format=CL).requires_grad_()
+    w = weight.to(torch.bfloat16).contiguous(memory_format=CL).requires_grad_()
+    y = F.conv2d(x, w, None, stride, padding, 1, groups)
+    gy = torch.randn(y.shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+        memory_format=CL)
+
+    def run():
+        out = F.conv2d(x, w, None, stride, padding, 1, groups)
+        torch.autograd.grad(out, (x, w), gy)
+    return run
+
+
+@pytest.mark.parametrize("k,stride", [(3, 1), (5, 2)])
+def test_dwconv_kernels_are_the_roofline_readers(cuda, k, stride):
+    """A depthwise conv's forward and backward at [32, 192, 128, 128] (bf16,
+    channels_last) launch only kernels whose names hold one of
+    ``dwconv_roofline``'s fragments."""
+    names = dwconv_kernels()
+    w = torch.randn((192, 1, k, k), device="cuda")
+    launched = device_kernel_names(conv_forward_backward((32, 192, 128, 128), w, stride,
+                                                         k // 2, 192))
+    assert launched and all(any(f in n for f in names) for n in launched), launched
+
+
+def test_dense_conv_kernels_are_not_the_roofline_readers(cuda):
+    names = dwconv_kernels()
+    w = torch.randn((64, 64, 3, 3), device="cuda")
+    launched = device_kernel_names(conv_forward_backward((16, 64, 256, 256), w, 1, 1, 1))
+    assert launched and not any(f in n for f in names for n in launched), launched
 
 
 def test_bn_batch_module_route_and_frozen_statistics(cuda, monkeypatch):

@@ -173,6 +173,7 @@ def test_cpu_path_counts_no_launches():
                                     "clip_adamw_update": 0, "clip_adamw_elems": 0,
                                     "bn_torch": 0, "bn_torch_bytes": 0,
                                     "bn_batch_fwd": 0, "bn_batch_bwd": 0, "bn_batch_bytes": 0,
+                                    "bn_batch_silu": 0, "dwconv": 0, "dwconv_bytes": 0, "se": 0,
                                     "ext_calls": 0, "ext_call_ns": 0,
                                     "tiles": 0, "tile_slots": 0}
 

@@ -1,5 +1,6 @@
-// Training-mode BatchNorm (+ ReLU) of a channels_last tensor from its
-// per-channel moments, forward and backward, for Hopper.
+// Training-mode BatchNorm (+ ReLU, or SiLU in the bn_batch_ family) of a
+// channels_last tensor from its per-channel moments, forward and backward, for
+// Hopper.
 //
 // Replaces no Pallas kernel: the JAX package leaves the normalization after
 // its conv + moments kernel to XLA, which fuses it into the surrounding
@@ -55,6 +56,14 @@
 // passes (moments 1, forward 2, backward 5) where torch's BN moved ~7 and
 // a ReLU beside it 4 more.
 //
+// The activation is a template parameter of every kernel (Act: identity,
+// ReLU, SiLU).  SiLU, which only the bn_batch_ family instantiates (the
+// EfficientNet encoder's BN + SiLU sites), is torch's: out = z / (1 + exp(-z))
+// on the rounded normalised z, rounded again to the tensor's type; its backward
+// recomputes z from x and the moments, as the ReLU's mask is recomputed, and
+// takes g' = g s (1 + z (1 - s)), s = 1 / (1 + exp(-z)), in fp32 (torch's
+// silu_backward, without rounding g' to the tensor's type).
+//
 // Routes and blocks are planned on the host (ops/pallas/bn_train.py::plan,
 // on bn_relu's plan), never as a fallback: the vector route (C a multiple
 // of V, the tensors on 16-byte addresses) and the scalar route (V = 1) for
@@ -80,6 +89,19 @@ struct Params {
 };
 
 __device__ __forceinline__ float clamp_min0(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
+
+// the activation after the normalisation
+enum Act : int { kIdentity = 0, kRelu = 1, kSilu = 2 };
+
+// torch's sigmoid of the SiLU, forward and backward: 1 / (1 + exp(-z))
+__device__ __forceinline__ float sigmoid_of(float z) { return 1.0f / (1.0f + expf(-z)); }
+
+template <Act kAct>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (kAct == kRelu) return clamp_min0(v);
+  else if constexpr (kAct == kSilu) return v / (1.0f + expf(-v));
+  else return v;
+}
 
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
@@ -138,9 +160,9 @@ struct Channels {
   }
 };
 
-// The forward of one block's rows: out = relu?(normalized), and the running
+// The forward of one block's rows: out = act(normalized), and the running
 // statistics moved by the first row of blocks.
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __device__ __forceinline__ void normalize_rows(
     const typename Lanes<T, V>::Raw* __restrict__ y, typename Lanes<T, V>::Raw* __restrict__ out,
     const float* __restrict__ s, const float* __restrict__ q, const float* __restrict__ w,
@@ -182,15 +204,14 @@ __device__ __forceinline__ void normalize_rows(
       L::unpack(in[u], f);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        f[j] = normalized<T>(__fsub_rn(f[j], ch.mean[j]), ch.inv[j], ch.bias[j]);
-        if (kRelu) f[j] = clamp_min0(f[j]);
+        f[j] = activate<kAct>(normalized<T>(__fsub_rn(f[j], ch.mean[j]), ch.inv[j], ch.bias[j]));
       }
       out[r * vecs + v] = L::pack(f);
     }
   }
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_train_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
                     typename Lanes<T, V>::Raw* __restrict__ out, const float* __restrict__ s,
@@ -198,11 +219,11 @@ bn_train_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
                     const float* __restrict__ b, float* __restrict__ run_mean,
                     float* __restrict__ run_var, long long* __restrict__ count, Params p,
                     int64_t rows, int vecs, bool vec_stats, bool update) {
-  normalize_rows<T, V, kRelu>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
+  normalize_rows<T, V, kAct>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
                               vec_stats, update);
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_batch_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
                     typename Lanes<T, V>::Raw* __restrict__ out, const float* __restrict__ s,
@@ -210,16 +231,23 @@ bn_batch_fwd_kernel(const typename Lanes<T, V>::Raw* __restrict__ y,
                     const float* __restrict__ b, float* __restrict__ run_mean,
                     float* __restrict__ run_var, long long* __restrict__ count, Params p,
                     int64_t rows, int vecs, bool vec_stats, bool update) {
-  normalize_rows<T, V, kRelu>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
+  normalize_rows<T, V, kAct>(y, out, s, q, w, b, run_mean, run_var, count, p, rows, vecs,
                               vec_stats, update);
 }
 
-// g' of one element: g where the forward's output is kept by the ReLU
-// (torch's threshold_backward: 0 where out <= 0)
-template <typename T, bool kRelu>
+// g' of one element, the output's cotangent through the activation: g where
+// the forward's output is kept by the ReLU (torch's threshold_backward: 0
+// where out <= 0); g s (1 + z (1 - s)) through the SiLU (torch's silu_backward)
+template <typename T, Act kAct>
 __device__ __forceinline__ float masked(float g, float yc, float inv, float bias) {
-  if (!kRelu) return g;
-  return normalized<T>(yc, inv, bias) <= 0.0f ? 0.0f : g;
+  if constexpr (kAct == kIdentity) return g;
+  const float z = normalized<T>(yc, inv, bias);
+  if constexpr (kAct == kRelu) {
+    return z <= 0.0f ? 0.0f : g;
+  } else {
+    const float sg = sigmoid_of(z);
+    return g * sg * (1.0f + z * (1.0f - sg));
+  }
 }
 
 // Sums the block's [block_y][block_x * V] values of `red` over its rows, in
@@ -306,7 +334,7 @@ __device__ __forceinline__ bool chunk_totals(float (&sa)[V], float (&sb)[V], flo
 
 // Pass 1 of the backward: A and B a channel, summed by chunk_totals; the
 // last block of a chunk writes its k0, k1 (coef [2][C]), dweight and dbias.
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __device__ __forceinline__ void backward_sums(
     const typename Lanes<T, V>::Raw* __restrict__ g, const typename Lanes<T, V>::Raw* __restrict__ y,
     const float* __restrict__ s, const float* __restrict__ q, const float* __restrict__ w,
@@ -346,7 +374,7 @@ __device__ __forceinline__ void backward_sums(
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const float yc = __fsub_rn(yf[j], ch.mean[j]);
-          const float gp = masked<T, kRelu>(gf[j], yc, ch.inv[j], ch.bias[j]);
+          const float gp = masked<T, kAct>(gf[j], yc, ch.inv[j], ch.bias[j]);
           sa[j] += gp;
           sb[j] = fmaf(gp, yc, sb[j]);
         }
@@ -372,7 +400,7 @@ __device__ __forceinline__ void backward_sums(
   }
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                            const typename Lanes<T, V>::Raw* __restrict__ y,
@@ -381,11 +409,11 @@ bn_train_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                            int64_t rows, int vecs, bool vec_stats, float* partial,
                            unsigned int* tickets, float* __restrict__ coef,
                            float* __restrict__ dw, float* __restrict__ db) {
-  backward_sums<T, V, kRelu>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
+  backward_sums<T, V, kAct>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
                              dw, db);
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_batch_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                            const typename Lanes<T, V>::Raw* __restrict__ y,
@@ -394,12 +422,12 @@ bn_batch_bwd_reduce_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                            int64_t rows, int vecs, bool vec_stats, float* partial,
                            unsigned int* tickets, float* __restrict__ coef,
                            float* __restrict__ dw, float* __restrict__ db) {
-  backward_sums<T, V, kRelu>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
+  backward_sums<T, V, kAct>(g, y, s, q, w, b, p, rows, vecs, vec_stats, partial, tickets, coef,
                              dw, db);
 }
 
 // Pass 2 of the backward: dy = inv g' + k0 + k1 (y - mean), rounded once.
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __device__ __forceinline__ void backward_apply(
     const typename Lanes<T, V>::Raw* __restrict__ g, const typename Lanes<T, V>::Raw* __restrict__ y,
     typename Lanes<T, V>::Raw* __restrict__ dy, const float* __restrict__ s,
@@ -437,7 +465,7 @@ __device__ __forceinline__ void backward_apply(
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float yc = __fsub_rn(yf[j], ch.mean[j]);
-        const float gp = masked<T, kRelu>(gf[j], yc, ch.inv[j], ch.bias[j]);
+        const float gp = masked<T, kAct>(gf[j], yc, ch.inv[j], ch.bias[j]);
         gf[j] = fmaf(ch.inv[j], gp, fmaf(k1[j], yc, k0[j]));
       }
       dy[r * vecs + v] = L::pack(gf);
@@ -445,7 +473,7 @@ __device__ __forceinline__ void backward_apply(
   }
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_train_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                           const typename Lanes<T, V>::Raw* __restrict__ y,
@@ -454,10 +482,10 @@ bn_train_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                           const float* __restrict__ w, const float* __restrict__ b,
                           const float* __restrict__ coef, Params p, int64_t rows, int vecs,
                           bool vec_stats) {
-  backward_apply<T, V, kRelu>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
+  backward_apply<T, V, kAct>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
 }
 
-template <typename T, int V, bool kRelu>
+template <typename T, int V, Act kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_batch_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                           const typename Lanes<T, V>::Raw* __restrict__ y,
@@ -466,7 +494,7 @@ bn_batch_bwd_apply_kernel(const typename Lanes<T, V>::Raw* __restrict__ g,
                           const float* __restrict__ w, const float* __restrict__ b,
                           const float* __restrict__ coef, Params p, int64_t rows, int vecs,
                           bool vec_stats) {
-  backward_apply<T, V, kRelu>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
+  backward_apply<T, V, kAct>(g, y, dy, s, q, w, b, coef, p, rows, vecs, vec_stats);
 }
 
 // The moments of x: its fp32 sum s and sum of squares q a channel, written
@@ -527,7 +555,7 @@ bool plan_ok(int64_t rows, int c, int vec, int kvec, int block_x, int block_y, i
 }
 
 // The normalisation launch of either family (kBatch: bn_batch_fwd_kernel).
-template <typename T, int V, bool kRelu, bool kBatch>
+template <typename T, int V, Act kAct, bool kBatch>
 void fwd(const T* y, T* out, const float* s, const float* q, const float* w, const float* b,
          float* rm, float* rv, long long* count, const Params& p, int64_t rows, int c,
          dim3 grid, dim3 block, bool update, cudaStream_t st) {
@@ -536,19 +564,41 @@ void fwd(const T* y, T* out, const float* s, const float* q, const float* w, con
   const Raw* yr = reinterpret_cast<const Raw*>(y);
   Raw* outr = reinterpret_cast<Raw*>(out);
   if constexpr (kBatch)
-    bn_batch_fwd_kernel<T, V, kRelu><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
+    bn_batch_fwd_kernel<T, V, kAct><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
                                                             p, rows, c / V, vec_stats, update);
   else
-    bn_train_fwd_kernel<T, V, kRelu><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
+    bn_train_fwd_kernel<T, V, kAct><<<grid, block, 0, st>>>(yr, outr, s, q, w, b, rm, rv, count,
                                                             p, rows, c / V, vec_stats, update);
 }
 
 template <typename T, int V, bool kBatch>
-void fwd_relu(const T* y, T* out, const float* s, const float* q, const float* w, const float* b,
-              float* rm, float* rv, long long* count, const Params& p, int64_t rows, int c,
-              dim3 grid, dim3 block, bool relu, bool update, cudaStream_t st) {
-  if (relu) fwd<T, V, true, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
-  else fwd<T, V, false, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
+void fwd_act(const T* y, T* out, const float* s, const float* q, const float* w, const float* b,
+             float* rm, float* rv, long long* count, const Params& p, int64_t rows, int c,
+             dim3 grid, dim3 block, Act act, bool update, cudaStream_t st) {
+  if constexpr (kBatch) {
+    if (act == kSilu) {
+      fwd<T, V, kSilu, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
+      return;
+    }
+  }
+  if (act == kRelu) fwd<T, V, kRelu, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
+  else fwd<T, V, kIdentity, kBatch>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, update, st);
+}
+
+// The activation a launch asks for, false for one its family has no kernel
+// of: the forward's flags (1 ReLU, 4 SiLU) or the backward's code (0
+// identity, 1 ReLU, 2 SiLU); SiLU in the bn_batch_ family alone.
+bool act_of_flags(int flags, bool batch, Act* act) {
+  const bool relu = flags & 1, silu = flags & 4;
+  if ((relu && silu) || (silu && !batch)) return false;
+  *act = silu ? kSilu : relu ? kRelu : kIdentity;
+  return true;
+}
+
+bool act_of_code(int code, bool batch, Act* act) {
+  if (code < kIdentity || code > kSilu || (code == kSilu && !batch)) return false;
+  *act = static_cast<Act>(code);
+  return true;
 }
 
 template <typename T, int kVec>
@@ -556,16 +606,17 @@ int launch_fwd(const T* y, T* out, const float* s, const float* q, const float* 
                const float* b, float* rm, float* rv, long long* count, Params p, int64_t rows,
                int c, int vec, int block_x, int block_y, int grid_x, int grid_y, int flags,
                void* stream) {
+  Act act;
   if (!plan_ok(rows, c, vec, kVec, block_x, block_y, grid_x, grid_y) ||
-      (vec != 1 && !(aligned16(y) && aligned16(out))))
+      (vec != 1 && !(aligned16(y) && aligned16(out))) || !act_of_flags(flags, false, &act))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool relu = flags & 1, update = flags & 2;
+  const bool update = flags & 2;
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 1)
-    fwd_relu<T, 1, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, relu, update, st);
+    fwd_act<T, 1, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, act, update, st);
   else
-    fwd_relu<T, kVec, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, relu, update, st);
+    fwd_act<T, kVec, false>(y, out, s, q, w, b, rm, rv, count, p, rows, c, grid, block, act, update, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,14 +626,14 @@ template <typename T, int V>
 int batch_fwd(const T* x, T* out, float* sq, float* partial, unsigned int* tickets,
               const float* w, const float* b, float* rm, float* rv, long long* count,
               const Params& p, int64_t rows, int c, dim3 reduce_grid, dim3 reduce_block,
-              dim3 grid, dim3 block, bool relu, bool update, cudaStream_t st) {
+              dim3 grid, dim3 block, Act act, bool update, cudaStream_t st) {
   using Raw = typename Lanes<T, V>::Raw;
   bn_batch_moments_kernel<T, V><<<reduce_grid, reduce_block, 0, st>>>(
       reinterpret_cast<const Raw*>(x), rows, c / V, partial, tickets, sq);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  fwd_relu<T, V, true>(x, out, sq, sq + c, w, b, rm, rv, count, p, rows, c, grid, block, relu,
-                       update, st);
+  fwd_act<T, V, true>(x, out, sq, sq + c, w, b, rm, rv, count, p, rows, c, grid, block, act,
+                      update, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,23 +643,24 @@ int launch_batch_fwd(const T* x, T* out, float* sq, float* partial, unsigned int
                      Params p, int64_t rows, int c, int vec, int reduce_x, int reduce_y,
                      int reduce_grid_x, int reduce_grid_y, int block_x, int block_y, int grid_x,
                      int grid_y, int flags, void* stream) {
+  Act act;
   if (!plan_ok(rows, c, vec, kVec, block_x, block_y, grid_x, grid_y) ||
       !plan_ok(rows, c, vec, kVec, reduce_x, reduce_y, reduce_grid_x, reduce_grid_y) ||
-      (vec != 1 && !(aligned16(x) && aligned16(out))))
+      (vec != 1 && !(aligned16(x) && aligned16(out))) || !act_of_flags(flags, true, &act))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool relu = flags & 1, update = flags & 2;
+  const bool update = flags & 2;
   const dim3 rgrid(reduce_grid_x, reduce_grid_y), rblock(reduce_x, reduce_y);
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 1)
     return batch_fwd<T, 1>(x, out, sq, partial, tickets, w, b, rm, rv, count, p, rows, c, rgrid,
-                           rblock, grid, block, relu, update, st);
+                           rblock, grid, block, act, update, st);
   return batch_fwd<T, kVec>(x, out, sq, partial, tickets, w, b, rm, rv, count, p, rows, c, rgrid,
-                            rblock, grid, block, relu, update, st);
+                            rblock, grid, block, act, update, st);
 }
 
 // The backward's two launches of either family (kBatch: the bn_batch_ kernels).
-template <typename T, int V, bool kRelu, bool kBatch>
+template <typename T, int V, Act kAct, bool kBatch>
 int bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const float* w,
         const float* b, float* partial, unsigned int* tickets, float* coef, float* dw, float* db,
         const Params& p, int64_t rows, int c, dim3 reduce_grid, dim3 reduce_block, dim3 grid,
@@ -619,50 +671,64 @@ int bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const flo
   const Raw* gr = reinterpret_cast<const Raw*>(g);
   const Raw* yr = reinterpret_cast<const Raw*>(y);
   if constexpr (kBatch)
-    bn_batch_bwd_reduce_kernel<T, V, kRelu><<<reduce_grid, reduce_block, 0, st>>>(
+    bn_batch_bwd_reduce_kernel<T, V, kAct><<<reduce_grid, reduce_block, 0, st>>>(
         gr, yr, s, q, w, b, p, rows, c / V, vec_stats, partial, tickets, coef, dw, db);
   else
-    bn_train_bwd_reduce_kernel<T, V, kRelu><<<reduce_grid, reduce_block, 0, st>>>(
+    bn_train_bwd_reduce_kernel<T, V, kAct><<<reduce_grid, reduce_block, 0, st>>>(
         gr, yr, s, q, w, b, p, rows, c / V, vec_stats, partial, tickets, coef, dw, db);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   Raw* dyr = reinterpret_cast<Raw*>(dy);
   if constexpr (kBatch)
-    bn_batch_bwd_apply_kernel<T, V, kRelu><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
+    bn_batch_bwd_apply_kernel<T, V, kAct><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
                                                                   p, rows, c / V, vec_stats);
   else
-    bn_train_bwd_apply_kernel<T, V, kRelu><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
+    bn_train_bwd_apply_kernel<T, V, kAct><<<grid, block, 0, st>>>(gr, yr, dyr, s, q, w, b, coef,
                                                                   p, rows, c / V, vec_stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, bool kBatch>
+int bwd_act(const T* g, const T* y, T* dy, const float* s, const float* q, const float* w,
+            const float* b, float* partial, unsigned int* tickets, float* coef, float* dw,
+            float* db, const Params& p, int64_t rows, int c, dim3 reduce_grid, dim3 reduce_block,
+            dim3 grid, dim3 block, Act act, cudaStream_t st) {
+  if constexpr (kBatch) {
+    if (act == kSilu)
+      return bwd<T, V, kSilu, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p,
+                                      rows, c, reduce_grid, reduce_block, grid, block, st);
+  }
+  return act == kRelu
+      ? bwd<T, V, kRelu, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p, rows, c,
+                                 reduce_grid, reduce_block, grid, block, st)
+      : bwd<T, V, kIdentity, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p,
+                                     rows, c, reduce_grid, reduce_block, grid, block, st);
 }
 
 // Both backward launches.  The sums pass: a block of reduce_x x reduce_y
 // threads, reduce_grid_x row groups by reduce_grid_y chunks, `partial`
 // [reduce_grid_x][2][C] and one zeroed ticket a chunk; the apply pass the
-// forward's plan.
+// forward's plan; `act_code` the activation (0 identity, 1 ReLU, 2 SiLU).
 template <typename T, int kVec, bool kBatch>
 int launch_bwd(const T* g, const T* y, T* dy, const float* s, const float* q, const float* w,
                const float* b, float* partial, unsigned int* tickets, float* coef, float* dw,
                float* db, Params p, int64_t rows, int c, int vec, int reduce_x, int reduce_y,
                int reduce_grid_x, int reduce_grid_y, int block_x, int block_y, int grid_x,
-               int grid_y, int relu, void* stream) {
+               int grid_y, int act_code, void* stream) {
+  Act act;
   if (!plan_ok(rows, c, vec, kVec, block_x, block_y, grid_x, grid_y) ||
       !plan_ok(rows, c, vec, kVec, reduce_x, reduce_y, reduce_grid_x, reduce_grid_y) ||
-      (vec != 1 && !(aligned16(g) && aligned16(y) && aligned16(dy))))
+      (vec != 1 && !(aligned16(g) && aligned16(y) && aligned16(dy))) ||
+      !act_of_code(act_code, kBatch, &act))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 rgrid(reduce_grid_x, reduce_grid_y), rblock(reduce_x, reduce_y);
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 1) {
-    return relu ? bwd<T, 1, true, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
-                                          p, rows, c, rgrid, rblock, grid, block, st)
-                : bwd<T, 1, false, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
-                                           p, rows, c, rgrid, rblock, grid, block, st);
-  }
-  return relu ? bwd<T, kVec, true, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
-                                           p, rows, c, rgrid, rblock, grid, block, st)
-              : bwd<T, kVec, false, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
-                                            p, rows, c, rgrid, rblock, grid, block, st);
+  if (vec == 1)
+    return bwd_act<T, 1, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p, rows, c,
+                                 rgrid, rblock, grid, block, act, st);
+  return bwd_act<T, kVec, kBatch>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db, p, rows,
+                                  c, rgrid, rblock, grid, block, act, st);
 }
 
 }  // namespace
@@ -696,17 +762,18 @@ int vaeunet_bn_train_fwd_bf16(const void* y, void* out, const float* s, const fl
 }
 
 // g, y and dy [rows, c]; s, q, weight, bias float32 [c]; partial, tickets,
-// coef [2][c] scratch; dweight, dbias float32 [c]; the two plans and relu.
+// coef [2][c] scratch; dweight, dbias float32 [c]; the two plans and the
+// activation: 0 identity, 1 ReLU.
 int vaeunet_bn_train_bwd_f32(const float* g, const float* y, float* dy, const float* s,
                              const float* q, const float* w, const float* b, float* partial,
                              unsigned int* tickets, float* coef, float* dw, float* db,
                              float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                              int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
-                             int block_y, int grid_x, int grid_y, int relu, void* stream) {
+                             int block_y, int grid_x, int grid_y, int act, void* stream) {
   return launch_bwd<float, 4, false>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
                               Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x,
                               reduce_y, reduce_grid_x, reduce_grid_y, block_x, block_y, grid_x,
-                              grid_y, relu, stream);
+                              grid_y, act, stream);
 }
 
 int vaeunet_bn_train_bwd_bf16(const void* g, const void* y, void* dy, const float* s,
@@ -714,12 +781,12 @@ int vaeunet_bn_train_bwd_bf16(const void* g, const void* y, void* dy, const floa
                               unsigned int* tickets, float* coef, float* dw, float* db,
                               float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                               int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
-                              int block_y, int grid_x, int grid_y, int relu, void* stream) {
+                              int block_y, int grid_x, int grid_y, int act, void* stream) {
   return launch_bwd<__nv_bfloat16, 8, false>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(y),
       static_cast<__nv_bfloat16*>(dy), s, q, w, b, partial, tickets, coef, dw, db,
       Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x, reduce_y, reduce_grid_x,
-      reduce_grid_y, block_x, block_y, grid_x, grid_y, relu, stream);
+      reduce_grid_y, block_x, block_y, grid_x, grid_y, act, stream);
 }
 
 // x and out [rows, c] (a channels_last tensor); sq float32 [2][c], the
@@ -727,7 +794,7 @@ int vaeunet_bn_train_bwd_bf16(const void* g, const void* y, void* dy, const floa
 // (one zeroed a chunk) the moments' scratch; weight, bias, running mean and
 // var float32 [c]; count the int64 batch counter; then the scalars, the
 // moments' plan (block, grid), the normalisation's (V, block, grid) and
-// flags: 1 ReLU, 2 move the running statistics.  Two launches; returns a
+// flags: 1 ReLU, 2 move the running statistics, 4 SiLU.  Two launches; returns a
 // cudaError_t: 0, a launch's, or that of a refused plan.
 int vaeunet_bn_batch_fwd_f32(const float* x, float* out, float* sq, float* partial,
                              unsigned int* tickets, const float* w, const float* b, float* rm,
@@ -755,17 +822,17 @@ int vaeunet_bn_batch_fwd_bf16(const void* x, void* out, float* sq, float* partia
 }
 
 // The bn_batch backward: vaeunet_bn_train_bwd_*'s arguments, with s and q
-// the moments the forward entry wrote.
+// the moments the forward entry wrote, and the activation 2 SiLU as well.
 int vaeunet_bn_batch_bwd_f32(const float* g, const float* y, float* dy, const float* s,
                              const float* q, const float* w, const float* b, float* partial,
                              unsigned int* tickets, float* coef, float* dw, float* db,
                              float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                              int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
-                             int block_y, int grid_x, int grid_y, int relu, void* stream) {
+                             int block_y, int grid_x, int grid_y, int act, void* stream) {
   return launch_bwd<float, 4, true>(g, y, dy, s, q, w, b, partial, tickets, coef, dw, db,
                                     Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x,
                                     reduce_y, reduce_grid_x, reduce_grid_y, block_x, block_y,
-                                    grid_x, grid_y, relu, stream);
+                                    grid_x, grid_y, act, stream);
 }
 
 int vaeunet_bn_batch_bwd_bf16(const void* g, const void* y, void* dy, const float* s,
@@ -773,12 +840,12 @@ int vaeunet_bn_batch_bwd_bf16(const void* g, const void* y, void* dy, const floa
                               unsigned int* tickets, float* coef, float* dw, float* db,
                               float inv_n, float eps, int64_t rows, int c, int vec, int reduce_x,
                               int reduce_y, int reduce_grid_x, int reduce_grid_y, int block_x,
-                              int block_y, int grid_x, int grid_y, int relu, void* stream) {
+                              int block_y, int grid_x, int grid_y, int act, void* stream) {
   return launch_bwd<__nv_bfloat16, 8, true>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(y),
       static_cast<__nv_bfloat16*>(dy), s, q, w, b, partial, tickets, coef, dw, db,
       Params{inv_n, eps, 0.0f, 0.0f, 0.0f}, rows, c, vec, reduce_x, reduce_y, reduce_grid_x,
-      reduce_grid_y, block_x, block_y, grid_x, grid_y, relu, stream);
+      reduce_grid_y, block_x, block_y, grid_x, grid_y, act, stream);
 }
 
 }  // extern "C"

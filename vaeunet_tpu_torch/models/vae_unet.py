@@ -1,5 +1,6 @@
-"""VAE-UNet: ResNet-encoder U-Net with a variational bottleneck.  Port of
-``vaeunet_tpu/models/vae_unet.py`` (reference ``unet/unet_resnet.py``).
+"""VAE-UNet: ResNet- or EfficientNet-encoder U-Net with a variational
+bottleneck.  Port of ``vaeunet_tpu/models/vae_unet.py`` (reference
+``unet/unet_resnet.py``).
 
 Tensors are NCHW in ``torch.channels_last`` memory.  Attribute names are
 the reference state-dict names (``mu_head.0``, ``z_initial.1``,
@@ -24,9 +25,13 @@ sees the latent broadcast over B x H x W, so its unbiased running-variance
 factor uses that count, which is what the JAX fused decoder's
 ``virtual_n=b*h*w`` restores (``vae_unet.py:196-202``).
 
-The encoder's channels set the decoder's plan (JAX ``vae_unet.py:282-295``):
+The backbone name picks the encoder (:func:`build_encoder`):
+resnet18/34/50/101 (``models/resnet.py``) or efficientnet_b4
+(``models/efficientnet.py``, which the JAX package does not have).  The
+encoder's channels set the decoder's plan (JAX ``vae_unet.py:282-295``):
 resnet50/101 give a 2048-wide ``z_initial`` and a first decoder conv of
-2048 + 1024 + 32 input channels.  ``deep_supervision`` adds three 1x1 heads
+2048 + 1024 + 32 input channels, efficientnet_b4 a 448-wide one and 448 +
+160 + 32.  ``deep_supervision`` adds three 1x1 heads
 (``ds_heads.{0,1,2}``) on decoder levels 0-2, whose logits the forward
 hands out only when asked (``intermediates=``), as the JAX ``sow`` costs
 nothing unless ``'intermediates'`` is requested.  ``use_remat``
@@ -52,8 +57,9 @@ import torch
 import torch.nn as nn
 
 from vaeunet_tpu_torch.device import resolve_device, use_fp32_numerics
+from vaeunet_tpu_torch.models.efficientnet import EFFICIENTNET_CONFIGS, EfficientNetEncoder
 from vaeunet_tpu_torch.models.parts import AttentionGate
-from vaeunet_tpu_torch.models.resnet import ResNetEncoder
+from vaeunet_tpu_torch.models.resnet import RESNET_CONFIGS, ResNetEncoder
 from vaeunet_tpu_torch.ops import remat
 from vaeunet_tpu_torch.ops.layers import BatchNorm, Conv, bn_relu, conv3x3_bn
 from vaeunet_tpu_torch.ops.pool import avg_pool_global
@@ -61,6 +67,20 @@ from vaeunet_tpu_torch.ops.resize import broadcast_latent_spatial, resize_biline
 from vaeunet_tpu_torch.ops.sampling import gaussian_like
 
 LatentInjection = Union[str, Tuple[int, ...]]
+
+
+def build_encoder(n_channels: int, backbone: str, use_remat: bool = False,
+                  remat_policy: str = "full") -> nn.Module:
+    """The feature encoder of `backbone`: a ResNet or an EfficientNet, each
+    with ``feature_channels`` and a forward returning its 5 feature maps."""
+    if backbone in RESNET_CONFIGS:
+        return ResNetEncoder(n_channels, backbone=backbone, use_remat=use_remat,
+                             remat_policy=remat_policy)
+    if backbone in EFFICIENTNET_CONFIGS:
+        return EfficientNetEncoder(n_channels, backbone=backbone, use_remat=use_remat,
+                                   remat_policy=remat_policy)
+    raise ValueError(f"unknown backbone {backbone!r}: expected one of "
+                     f"{sorted(RESNET_CONFIGS) + sorted(EFFICIENTNET_CONFIGS)}")
 
 
 def resolve_injection(latent_injection: LatentInjection) -> Tuple[Tuple[bool, ...], bool, bool]:
@@ -158,8 +178,7 @@ class UNetResNet(nn.Module):
         # finite where the reference's KL clamp lets logvar drift.
         self.logvar_clamp = logvar_clamp
 
-        self.encoder = ResNetEncoder(n_channels, backbone=backbone, use_remat=use_remat,
-                                     remat_policy=remat_policy)
+        self.encoder = build_encoder(n_channels, backbone, use_remat, remat_policy)
         enc_ch = self.encoder.feature_channels           # resnet34: [64,64,128,256,512]
         self.mu_head = nn.Sequential(Conv(enc_ch[-1], latent_dim, 1))
         self.logvar_head = nn.Sequential(Conv(enc_ch[-1], latent_dim, 1))

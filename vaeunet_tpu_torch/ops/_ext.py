@@ -133,7 +133,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # recompute counts its BNs again.
 # "bn_batch_fwd" and "bn_batch_bwd" count the C calls of the training BNs
 # over their own moments (``ops/pallas/bn_train.py::bn_batch``: two launches
-# each way), "bn_batch_bytes" their inputs' bytes while a profiler runs.
+# each way), "bn_batch_bytes" their inputs' bytes while a profiler runs;
+# "bn_batch_silu" the forwards among them with a SiLU.
+# "dwconv" the depthwise convolutions (``ops/layers.py::DepthwiseConv``, on
+# cuDNN), "dwconv_bytes" their forwards' input and output bytes while a
+# profiler runs; "se" the squeeze-excite gates (``ops/layers.py::
+# SqueezeExcite``).  These count calls on every device.
 # "tiles" and "tile_slots": the tiles of the tiled requests' grids and the
 # encoder batch slots they took, padding included.
 LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0,
@@ -144,6 +149,7 @@ LAUNCHES: Dict[str, int] = {"normal": 0, "reparam": 0, "bn_relu": 0, "resize": 0
                             "clip_adamw_norm": 0, "clip_adamw_update": 0, "clip_adamw_elems": 0,
                             "bn_torch": 0, "bn_torch_bytes": 0,
                             "bn_batch_fwd": 0, "bn_batch_bwd": 0, "bn_batch_bytes": 0,
+                            "bn_batch_silu": 0, "dwconv": 0, "dwconv_bytes": 0, "se": 0,
                             "ext_calls": 0, "ext_call_ns": 0, "tiles": 0, "tile_slots": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

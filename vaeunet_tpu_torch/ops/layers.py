@@ -13,7 +13,12 @@ them to XLA), in the input's type as the JAX ``Conv`` computes them
   whose ``group`` is None through ``ops/pallas/bn_train.py::bn_batch``
   (a moments pass, then the ``bn_train`` math on the ``bn_batch_`` kernels),
   with the ReLU of a BN -> ReLU pair inside it (``relu=True``, as
-  :func:`bn_relu` and the strided branch of :func:`conv3x3_bn` call it);
+  :func:`bn_relu` and the strided branch of :func:`conv3x3_bn` call it) and
+  the SiLU of a BN -> SiLU pair (``silu=True``, the EfficientNet encoder's);
+- :class:`DepthwiseConv` is a depthwise conv on cuDNN's grouped
+  ``F.conv2d`` in channels_last memory, and :class:`SqueezeExcite` the
+  squeeze-excite gate on torch's ops, its mean pool accumulated in fp32
+  (``models/efficientnet.py``; the JAX package has neither);
 - :func:`conv3x3_bn` sends every stride-1, pad-1, bias-free 3x3 conv that
   feeds a training-mode BatchNorm through ``ops/pallas/conv_bn_stats.py``,
   whose moments the BN normalizes with (the JAX ``BatchNorm(moments=...)``,
@@ -59,13 +64,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from vaeunet_tpu_torch.ops import remat
+from vaeunet_tpu_torch.ops import _ext, remat
 import torch.distributed as dist
 
 from vaeunet_tpu_torch.ops._ext import count_torch_bn
 from vaeunet_tpu_torch.ops.collectives import all_reduce_sum
 from vaeunet_tpu_torch.ops.pallas.bn_relu import fused_bn_relu
-from vaeunet_tpu_torch.ops.pallas.bn_train import (Running, bn_batch, bn_train, fold_moments,
+from vaeunet_tpu_torch.ops.pallas.bn_train import (RELU, SILU, Running, activate_plain,
+                                                   bn_batch, bn_train, fold_moments,
                                                    move_running, normalize_plain)
 from vaeunet_tpu_torch.ops.pallas.conv_bn_stats import conv3x3_bn_stats, fold_cotangents
 
@@ -77,9 +83,9 @@ class Conv(nn.Conv2d):
     a bf16 activation runs a bf16 convolution (a no-op in fp32)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 0, bias: bool = True):
+                 stride: int = 1, padding: int = 0, bias: bool = True, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, bias=bias)
+                         padding=padding, bias=bias, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
@@ -108,6 +114,44 @@ class Conv(nn.Conv2d):
                 and self.groups == 1 and self.bias is None)
 
 
+class DepthwiseConv(Conv):
+    """A bias-free depthwise k x k conv (groups = channels, padding k // 2, as
+    timm pads its EfficientNets) on cuDNN's grouped ``F.conv2d``, in
+    channels_last memory and x's type.  Counts ``dwconv``, and under a
+    profiler the forward's input and output bytes in ``dwconv_bytes``."""
+
+    def __init__(self, channels: int, kernel_size: int, stride: int = 1):
+        super().__init__(channels, channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2, bias=False, groups=channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding,
+                     self.dilation, self.groups)
+        _ext.count_launch("dwconv")
+        _ext.count_bytes("dwconv_bytes", x)
+        _ext.count_bytes("dwconv_bytes", y)
+        return y
+
+
+class SqueezeExcite(nn.Module):
+    """x * sigmoid(conv_expand(silu(conv_reduce(mean over H, W of x)))): the
+    squeeze-excite gate of an EfficientNet block (timm's ``SqueezeExcite``),
+    its 1x1 convs with bias.  The mean accumulates in fp32 and is rounded to
+    x's type for the convs.  Counts ``se``."""
+
+    def __init__(self, channels: int, reduced: int):
+        super().__init__()
+        self.conv_reduce = Conv(channels, reduced, 1)
+        self.conv_expand = Conv(reduced, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = x.mean((2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+        gate = torch.sigmoid(self.conv_expand(F.silu(self.conv_reduce(pooled))))
+        _ext.count_launch("se")
+        return x * gate
+
+
 class ConvTranspose2x(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d(in, out, kernel_size=2, stride=2)`` (reference
     unet/unet_parts.py:76; JAX ``ops/layers.py:112``), computed in the
@@ -131,17 +175,18 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        """BN of `x`, then ReLU if `relu`.  Training mode on a CUDA tensor:
-        the ``bn_batch`` kernels, the ReLU inside them; with ``group`` set,
-        :meth:`forward_moments` on the group's moments; on the CPU torch's
-        training BN.  Eval mode: torch's BN."""
+    def forward(self, x: torch.Tensor, relu: bool = False, silu: bool = False) -> torch.Tensor:
+        """BN of `x`, then ReLU if `relu` or SiLU if `silu`.  Training mode
+        on a CUDA tensor: the ``bn_batch`` kernels, the activation inside
+        them; with ``group`` set, :meth:`forward_moments` on the group's
+        moments; on the CPU torch's training BN.  Eval mode: torch's BN."""
+        act = SILU if silu else RELU if relu else 0
         if self.training and self.group is not None:
             x32 = x.float()
             y = self.forward_moments(x, x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)))
         elif self.training and x.is_cuda:
             running = None if remat.bn_frozen() else self._running()
-            return bn_batch(x, self.weight, self.bias, relu, self.eps, running)
+            return bn_batch(x, self.weight, self.bias, act, self.eps, running)
         else:
             if self.training:
                 count_torch_bn(x)
@@ -155,7 +200,7 @@ class BatchNorm(nn.BatchNorm2d):
                                  self.weight, self.bias, True, self.momentum, self.eps)
             else:
                 y = super().forward(x)
-        return F.relu(y) if relu else y
+        return activate_plain(y, act)
 
     def forward_moments(self, y: torch.Tensor, s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """Training-mode BN of `y` from its per-channel fp32 sum `s` and sum

@@ -1,4 +1,4 @@
-"""Training-mode BatchNorm (+ ReLU) from the conv kernel's moments: the CUDA
+"""Training-mode BatchNorm (+ ReLU or SiLU) from the conv kernel's moments: the CUDA
 kernels' wrapper, their plain versions and the autograd Function.  New in
 the port: the JAX package leaves this math to XLA, which fuses it after
 ``conv3x3_bn_stats``; it has no Pallas kernel.
@@ -35,15 +35,22 @@ backward (the sums, then dy), counted as ``bn_train_fwd`` and
 ``bn_train_bwd``.  A CPU tensor goes to :func:`bn_train_plain` and
 :func:`bn_train_backward_plain`.
 
-``bn_batch(x, weight, bias, relu, eps, running) -> out`` is the same BN for
+``bn_batch(x, weight, bias, act, eps, running) -> out`` is the same BN for
 a tensor that comes without its moments: every training-mode BN outside the
 fused 3x3 sites (``ops/layers.py::BatchNorm.forward``).  s and q are x's own
 fp32 sum and sum of squares, and the rest is ``bn_train``'s math, backward
 included.  On the card it is the ``bn_batch_`` kernels of the same source:
 one C call forward (the moments pass, then the normalisation) and one
 backward (the two passes above), counted as ``bn_batch_fwd`` and
-``bn_batch_bwd``, with x's bytes in ``bn_batch_bytes`` while a profiler
-session runs.  On the CPU: :func:`bn_batch_plain`.
+``bn_batch_bwd`` (and ``bn_batch_silu``, a SiLU forward), with x's bytes in
+``bn_batch_bytes`` while a profiler session runs.  On the CPU:
+:func:`bn_batch_plain`.
+
+The activation ``act`` is :data:`IDENTITY` (or False), :data:`RELU` (or
+True) or, for ``bn_batch`` alone, :data:`SILU`: out = z sigmoid(z) on the
+normalised z rounded to x's type (``F.silu``), whose backward takes g' = g
+s (1 + z (1 - s)), s = sigmoid(z), with z recomputed from x and the moments
+as the ReLU's mask is.
 """
 
 from __future__ import annotations
@@ -59,6 +66,8 @@ from vaeunet_tpu_torch.ops import _ext
 from vaeunet_tpu_torch.ops.pallas import bn_relu
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the activation after the normalisation (the kernels' Act; a bool is ReLU or none)
+IDENTITY, RELU, SILU = 0, 1, 2
 # the sums pass: channel vectors across a block (the rest along its rows),
 # and blocks an SM, which bound the partial rows its last block adds up
 REDUCE_VECS = 32
@@ -97,20 +106,27 @@ def normalize_plain(y: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     return out.to(y.dtype)
 
 
+def activate_plain(out: torch.Tensor, act: int) -> torch.Tensor:
+    """`out` through the activation: ``F.relu``, ``F.silu`` or as it is."""
+    if act == SILU:
+        return F.silu(out)
+    return F.relu(out) if act else out
+
+
 def bn_train_plain(y: torch.Tensor, s: torch.Tensor, q: torch.Tensor, weight: torch.Tensor,
-                   bias: torch.Tensor, relu: bool, eps: float = 1e-5,
+                   bias: torch.Tensor, act: int, eps: float = 1e-5,
                    running: Optional[Running] = None) -> torch.Tensor:
-    """The forward in torch ops: ``BatchNorm.forward_moments`` then ``F.relu``."""
+    """The forward in torch ops: ``BatchNorm.forward_moments``, then
+    ``F.relu`` or ``F.silu`` (`act`)."""
     n = y.numel() // y.shape[1]
     mean, var, inv = fold_moments(s, q, n, eps, weight)
     if running is not None:
         move_running(running, mean, var, n)
-    out = normalize_plain(y, mean, inv, bias)
-    return F.relu(out) if relu else out
+    return activate_plain(normalize_plain(y, mean, inv, bias), act)
 
 
 def bn_train_backward_plain(g: torch.Tensor, y: torch.Tensor, s: torch.Tensor, q: torch.Tensor,
-                            weight: torch.Tensor, bias: torch.Tensor, relu: bool,
+                            weight: torch.Tensor, bias: torch.Tensor, act: int,
                             eps: float = 1e-5
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dy, dweight, dbias) in closed form (module docstring), torch ops."""
@@ -121,9 +137,13 @@ def bn_train_backward_plain(g: torch.Tensor, y: torch.Tensor, s: torch.Tensor, q
     r = torch.rsqrt(var + eps)
     yc = y.float() - mean.view(shape)
     g = g.float()
-    if relu:
-        out = (yc * inv.view(shape) + bias.view(shape)).to(y.dtype)
-        g = torch.where(out <= 0, torch.zeros_like(g), g)
+    if act:
+        z = (yc * inv.view(shape) + bias.view(shape)).to(y.dtype).float()
+        if act == SILU:
+            sg = torch.sigmoid(z)
+            g = g * sg * (1.0 + z * (1.0 - sg))
+        else:
+            g = torch.where(z <= 0, torch.zeros_like(g), g)
     a = g.sum((0, 2, 3))
     b = (g * yc).sum((0, 2, 3))
     dvar = -0.5 * (b * weight) * r * r * r
@@ -268,7 +288,7 @@ def backward_launch_args(g, y, dy, s, q, weight, bias, relu: bool, eps: float):
                           bias, relu, eps)
 
 
-def _backward_args(entry: str, g, y, dy, s_ptr: int, q_ptr: int, weight, bias, relu: bool,
+def _backward_args(entry: str, g, y, dy, s_ptr: int, q_ptr: int, weight, bias, act: int,
                    eps: float):
     c = y.shape[1]
     rows = y.numel() // c
@@ -285,7 +305,7 @@ def _backward_args(entry: str, g, y, dy, s_ptr: int, q_ptr: int, weight, bias, r
     fn = entry + ("f32" if y.dtype == torch.float32 else "bf16")
     args = (g.data_ptr(), y.data_ptr(), dy.data_ptr(), s_ptr, q_ptr, weight.data_ptr(), bias.data_ptr(), base + 8 * c, ticket.data_ptr(), base,
             grads[0].data_ptr(), grads[1].data_ptr(), inv_n, eps, rows, c, p.apply.vec,
-            *p.reduce.block, *p.reduce.grid, *p.apply.block, *p.apply.grid, int(relu))
+            *p.reduce.block, *p.reduce.grid, *p.apply.block, *p.apply.grid, int(act))
     return fn, args, (grads[0], grads[1]), (scratch, ticket)
 
 
@@ -349,14 +369,19 @@ def batch_moments_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3))])
 
 
-def bn_batch_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, relu: bool,
+def bn_batch_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, act: int,
                    eps: float = 1e-5, running: Optional[Running] = None) -> torch.Tensor:
     """The forward in torch ops: :func:`bn_train_plain` on x's own moments."""
     s, q = batch_moments_plain(x)
-    return bn_train_plain(x, s, q, weight, bias, relu, eps, running)
+    return bn_train_plain(x, s, q, weight, bias, act, eps, running)
 
 
-def batch_forward_launch_args(x, out, weight, bias, relu: bool, eps: float,
+def act_flags(act: int) -> int:
+    """The forward entries' activation flags: 1 ReLU, 4 SiLU."""
+    return 4 if act == SILU else int(bool(act))
+
+
+def batch_forward_launch_args(x, out, weight, bias, act: int, eps: float,
                               running: Optional[Running]):
     """(C entry, arguments less the stream, the fp32 scratch whose first
     2 C values the launch fills with s and q) of the forward from `x` into
@@ -385,30 +410,32 @@ def batch_forward_launch_args(x, out, weight, bias, relu: bool, eps: float,
     fn = "vaeunet_bn_batch_fwd_f32" if x.dtype == torch.float32 else "vaeunet_bn_batch_fwd_bf16"
     return fn, (x.data_ptr(), out.data_ptr(), base, base + 8 * c, ticket.data_ptr(),
                 weight.data_ptr(), bias.data_ptr(), *stats, inv_n, eps, m, 1.0 - m, unbias,
-                *planned, flags | int(relu)), scratch
+                *planned, flags | act_flags(act)), scratch
 
 
-def batch_backward_launch_args(g, x, dx, moments, weight, bias, relu: bool, eps: float):
+def batch_backward_launch_args(g, x, dx, moments, weight, bias, act: int, eps: float):
     """:func:`backward_launch_args` of the ``bn_batch_`` kernels, with s and
     q the first 2 C values of `moments` (the forward's scratch)."""
     c = x.shape[1]
     base = moments.data_ptr()
     return _backward_args("vaeunet_bn_batch_bwd_", g, x, dx, base, base + 4 * c, weight, bias,
-                          relu, eps)
+                          act, eps)
 
 
-def _batch_forward_cuda(x, weight, bias, relu: bool, eps: float, running: Optional[Running]):
+def _batch_forward_cuda(x, weight, bias, act: int, eps: float, running: Optional[Running]):
     out = torch.empty_like(x, memory_format=torch.channels_last)
-    fn, args, moments = batch_forward_launch_args(x, out, weight, bias, relu, eps, running)
+    fn, args, moments = batch_forward_launch_args(x, out, weight, bias, act, eps, running)
     _ext.call("bn_train", fn, x.device, *args)
     _ext.count_launch("bn_batch_fwd")
+    if act == SILU:
+        _ext.count_launch("bn_batch_silu")
     _ext.count_bytes("bn_batch_bytes", x)
     return out, moments
 
 
-def _batch_backward_cuda(g, x, moments, weight, bias, relu: bool, eps: float):
+def _batch_backward_cuda(g, x, moments, weight, bias, act: int, eps: float):
     dx = torch.empty_like(x, memory_format=torch.channels_last)
-    fn, args, (dw, db), _ = batch_backward_launch_args(g, x, dx, moments, weight, bias, relu, eps)
+    fn, args, (dw, db), _ = batch_backward_launch_args(g, x, dx, moments, weight, bias, act, eps)
     _ext.call("bn_train", fn, x.device, *args)
     _ext.count_launch("bn_batch_bwd")
     return dx, dw, db
@@ -417,17 +444,17 @@ def _batch_backward_cuda(g, x, moments, weight, bias, relu: bool, eps: float):
 class _BnBatch(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, bias, relu, eps, running):
+    def forward(ctx, x, weight, bias, act, eps, running):
         ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
             moments = batch_moments_plain(x)
-            out = bn_train_plain(x, moments[0], moments[1], weight, bias, relu, eps, running)
+            out = bn_train_plain(x, moments[0], moments[1], weight, bias, act, eps, running)
             moments = moments.view(-1)
         elif x.device.type == "cuda":
-            out, moments = _batch_forward_cuda(x, weight, bias, relu, eps, running)
+            out, moments = _batch_forward_cuda(x, weight, bias, act, eps, running)
         else:
             raise ValueError(f"bn_batch: unsupported device {x.device}")
-        ctx.relu, ctx.eps = relu, eps
+        ctx.act, ctx.eps = act, eps
         ctx.save_for_backward(x, moments, weight, bias)
         return out
 
@@ -442,18 +469,22 @@ class _BnBatch(torch.autograd.Function):
         if x.device.type == "cpu":
             c = x.shape[1]
             dx, dw, db = bn_train_backward_plain(g, x, moments[:c], moments[c:2 * c], weight,
-                                                 bias, ctx.relu, ctx.eps)
+                                                 bias, ctx.act, ctx.eps)
         else:
-            dx, dw, db = _batch_backward_cuda(g, x, moments, weight, bias, ctx.relu, ctx.eps)
+            dx, dw, db = _batch_backward_cuda(g, x, moments, weight, bias, ctx.act, ctx.eps)
         need = ctx.needs_input_grad
         return dx, dw if need[1] else None, db if need[2] else None, None, None, None
 
 
-def bn_batch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, relu: bool,
+def bn_batch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, act: int,
              eps: float = 1e-5, running: Optional[Running] = None) -> torch.Tensor:
-    """Training-mode BN (+ ReLU) of `x` over its own batch statistics; see
-    the module docstring.  A tensor that is not channels_last-contiguous
-    is made so first.  Differentiable in x and the affine parameters."""
+    """Training-mode BN (+ ReLU or SiLU, `act`) of `x` over its own batch
+    statistics; see the module docstring.  A tensor that is not
+    channels_last-contiguous is made so first.  Differentiable in x and the
+    affine parameters."""
+    act = int(act)
+    if act not in (IDENTITY, RELU, SILU):
+        raise ValueError(f"bn_batch: activation {act} is none of 0, 1, 2")
     x = x.contiguous(memory_format=torch.channels_last)
     _check(x, ("weight", weight), ("bias", bias), op="bn_batch")
     if running is not None:
@@ -461,4 +492,4 @@ def bn_batch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, relu: bo
     if x.numel() == x.shape[1]:
         raise ValueError(f"bn_batch: expected more than 1 value per channel when training, "
                          f"got input size {tuple(x.shape)}")
-    return _BnBatch.apply(x, weight, bias, relu, eps, running)
+    return _BnBatch.apply(x, weight, bias, act, eps, running)
